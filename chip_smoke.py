@@ -1,0 +1,665 @@
+#!/usr/bin/env python3
+"""Smoke test of the PyTorch/CUDA port on one NVIDIA Hopper card.
+
+    python3 chip_smoke.py [--report PATH] [--profile]
+
+Drives the port (``src/repro_torch``) on the card, in five phases, each
+printing one line that starts with ``phase``:
+
+1. device and build: the card's name and power limit (nvidia-smi), and
+   the build of every CUDA source with nvcc, timed;
+2. every kernel against its plain PyTorch version on the card, at the
+   serving path's shapes (M in {8, 256} rows against each projection
+   shape of qwen2-0.5b, a ragged shape, a per-group case):
+   ``fused_dequant_mm`` within 2 gamma_K (|x| @ |w|) elementwise (see
+   ``csrc/fused_dequant.cu``), the three exact kernels ``torch.equal``;
+   then each kernel's time over one decode step's projections (24
+   layers x 7 projections at M = 8) beside its plain version's, the
+   card's least time for the same bytes and operations, and
+   ``torch._int_mm`` where it takes the inputs;
+3. full-width qwen2-0.5b (24 layers, d_model 896, vocab 151936, random
+   weights from a seed) served by the port's ``ServingEngine`` under
+   ``int4_serving`` with calibrated act scales and the fused executors:
+   16 requests at decode_block 1 and 4, identical greedy streams, then
+   briefly under ``int8_serving``;
+4. the exact int routes at full width: fused on vs off under
+   ``fidelity_int8`` and an exact int4 policy, identical greedy streams;
+5. one chunked prefill and one decode step at full width under
+   ``int8_serving`` on the card (kernels) and on the CPU (plain
+   versions), logits and caches compared.
+
+Any failure raises and exits non-zero. The line before the last is
+``{"kernels": [...]}`` (the kernel table), the last line
+``{"ok": true, "device": {...}}``. Without a CUDA device, or without
+the repository around it, it exits non-zero before printing either.
+``--report`` also writes every number to a JSON file; ``--profile``
+adds a torch.profiler breakdown of one decode block.
+"""
+import argparse
+import dataclasses
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+
+# published dense peaks (NVIDIA data sheets): memory bytes/s, f32 FMA
+# outside the tensor cores FLOP/s, int8 tensor-core OP/s
+CARDS = {
+    "H100 PCIe": {"bytes_per_s": 2.0e12, "f32": 51e12, "int8": 1513e12},
+    "H100 NVL": {"bytes_per_s": 3.9e12, "f32": 60e12, "int8": 1671e12},
+    "H100": {"bytes_per_s": 3.35e12, "f32": 67e12, "int8": 1979e12},
+    "H200": {"bytes_per_s": 4.8e12, "f32": 67e12, "int8": 1979e12},
+}
+U32 = 2.0 ** -24
+# card vs CPU at full width (phase 5). The two differ in the order of
+# every f32 sum, so a bf16 rounding can flip (2^-8 of the value), and so
+# can an int8 act code at a rounding boundary (1/127 of the input's
+# range). Random weights amplify such a difference layer by layer (the
+# phase prints the K cache's relative RMS difference for every layer),
+# so the first layer, before any amplification, is held to 1% relative
+# RMS, and the logits only to what tells a faithful computation from a
+# wrong one: 10% of their range elementwise and 15% relative RMS. A
+# wrong decode, scale or layout moves them by their whole range.
+FIRST_LAYER_REL_RMS = 1e-2
+CPU_LOGIT_MAX_OF_RANGE = 0.10
+CPU_LOGIT_REL_RMS = 0.15
+
+REPORT = {"phases": {}}
+REPORT_PATH = []
+T_START = time.perf_counter()
+
+
+def log(phase, **numbers):
+    numbers["elapsed_s"] = time.perf_counter() - T_START
+    REPORT["phases"][str(phase)] = numbers
+    print(f"phase {phase} " + json.dumps(numbers, default=float), flush=True)
+    write_report()
+
+
+def write_report():
+    """Rewrite the --report file (after every phase, so a failure still
+    leaves what was measured before it)."""
+    for path in REPORT_PATH:
+        os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+        with open(path, "w") as f:
+            json.dump(REPORT, f, indent=1, default=float)
+
+
+def card_rates(name):
+    for key in CARDS:                 # most specific names first
+        if key in name:
+            return key, CARDS[key]
+    return "H100", CARDS["H100"]
+
+
+def median_ms(fn, reps=10, warm=2):
+    """Median of ``reps`` CUDA-event timings of ``fn`` after warm-up."""
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        fn()
+        e1.record()
+        e1.synchronize()
+        times.append(e0.elapsed_time(e1))
+    return statistics.median(times)
+
+
+# ------------------------------------------------------------- phase 1
+
+def phase_build():
+    from repro_torch.kernels import _build
+    name = torch.cuda.get_device_name(0)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+    t0 = time.perf_counter()
+    reports = _build.build_all()
+    for src in _build.SOURCES:
+        _build.library(src)
+    build_s = time.perf_counter() - t0
+    ptxas = {}
+    for src, text in reports.items():
+        ptxas[src] = [ln.strip() for ln in text.splitlines()
+                      if "registers" in ln or "spill" in ln]
+    REPORT["ptxas"] = ptxas
+    log(1, device=name, nvidia_smi=smi, build_s=build_s,
+        built=sorted(reports), torch=torch.__version__,
+        cuda=torch.version.cuda)
+    return name, smi
+
+
+# ------------------------------------------------------------- phase 2
+
+LAYER = (("wq", 896, 896), ("wk", 896, 128), ("wv", 896, 128),
+         ("wo", 896, 896), ("w_gate", 896, 4864), ("w_up", 896, 4864),
+         ("w_down", 4864, 896))
+N_LAYERS = 24
+
+
+def _stored(gen, k, n, kind, groups=1):
+    """(stored weight, (G, N) scales) of a random f32 weight, made by
+    the port's own quantizers on the card."""
+    from repro_torch.kernels import ops
+    from repro_torch.quant.quantize import (FP4_E2M1, FP8_E4M3,
+                                            fp_quantize, quantize_symmetric)
+    w = torch.randn((k, n), generator=gen, device="cuda") / k ** 0.5
+    wg = w.reshape(groups, k // groups, n)
+    if kind in ("fp8", "fp4", "fp4_packed"):
+        q, s = fp_quantize(wg, FP8_E4M3 if kind == "fp8" else FP4_E2M1,
+                           axis=-2)
+    else:
+        q, s = quantize_symmetric(wg, 8 if kind == "int8" else 4, axis=-2)
+    q = q.reshape(k, n)
+    if kind == "int4_packed":
+        q = ops.pack_int4(q)
+    elif kind == "fp4_packed":
+        q = ops.pack_u4(q)
+    return q.contiguous(), s.reshape(groups, n).contiguous()
+
+
+def _sum_bound(x, w, sw, sa, kind, act):
+    """2 gamma_K (|x'| @ |w'|) in f64: the most two f32 summation orders
+    of the same products can differ by."""
+    from repro_torch.kernels import ref
+    xp = x
+    if act != "none":
+        xp = ref.quantize_act_ref(x, sa)
+        if act == "qdq":
+            xp = xp * sa
+    wf = ref.decode_weight_ref(w, kind)
+    k, n = wf.shape
+    g = sw.shape[0]
+    wf = (wf.reshape(g, k // g, n) * sw[:, None, :]).reshape(k, n)
+    absdot = xp.abs().double() @ wf.abs().double()
+    if act == "quant":
+        absdot = absdot * sa.double()
+    gamma = k * U32 / (1 - k * U32)
+    return 2 * gamma * absdot
+
+
+def _check_kernels(gen):
+    """Every kernel against its plain version at the serving shapes;
+    returns {kernel: max |kernel - plain|} and the comparison count."""
+    from repro_torch.kernels import fused, ops, ref
+    err = {"fused_dequant_mm": 0.0, "fused_qmm": 0.0, "qmm": 0.0,
+           "qmm_packed": 0.0}
+    n_cmp = 0
+    shapes = [(m, k, n, 1) for m in (8, 256) for _, k, n in LAYER]
+    shapes += [(5, 200, 72, 1), (8, 896, 896, 7), (256, 4864, 896, 38)]
+    for m, k, n, groups in shapes:
+        x = torch.randn((m, k), generator=gen, device="cuda") * 2
+        sa = (x.abs().amax() / 127).reshape(())
+        for kind in fused.KINDS:
+            w, sw = _stored(gen, k, n, kind, groups)
+            for act in fused.ACTS:
+                got = ops.fused_dequant_matmul(x, w, sw, sa, kind=kind,
+                                               act=act)
+                want = ops.fused_dequant_matmul(x, w, sw, sa, kind=kind,
+                                                act=act, backend="ref")
+                diff = (got.double() - want.double()).abs()
+                bound = _sum_bound(x, w, sw, sa, kind, act)
+                if not bool((diff <= bound).all()):
+                    raise AssertionError(
+                        f"fused_dequant_mm {kind}/{act} at {(m, k, n)} "
+                        f"G={groups}: max diff {float(diff.max())} over "
+                        f"its bound")
+                err["fused_dequant_mm"] = max(err["fused_dequant_mm"],
+                                              float(diff.max()))
+                n_cmp += 1
+            if groups > 1 or kind not in ("int8", "int4", "int4_packed"):
+                continue
+            got = ops.fused_quantized_matmul(x, w, sw, sa, kind=kind)
+            want = ops.fused_quantized_matmul(x, w, sw, sa, kind=kind,
+                                              backend="ref")
+            if not torch.equal(got, want):
+                raise AssertionError(f"fused_qmm {kind} at {(m, k, n)}: "
+                                     f"not bit-equal to its plain version")
+            n_cmp += 1
+            a = ref.quantize_act_ref(x, sa).to(torch.int8)
+            name, fn = (("qmm_packed", ops.int4_matmul_packed)
+                        if kind == "int4_packed"
+                        else ("qmm", ops.int8_matmul))
+            if not torch.equal(fn(a, w), fn(a, w, backend="ref")):
+                raise AssertionError(f"{name} {kind} at {(m, k, n)}: not "
+                                     f"bit-equal to its plain version")
+            n_cmp += 1
+    torch.cuda.synchronize()
+    return err, n_cmp
+
+
+class _Sweep:
+    """One decode step's projections: 24 layers x 7 projection shapes of
+    qwen2-0.5b at M rows, every layer its own weights (so the weights
+    come from device memory, as in the serving path, not from L2)."""
+
+    def __init__(self, gen, m, kind):
+        self.m, self.kind = m, kind
+        self.layers = [[_stored(gen, k, n, kind) for _, k, n in LAYER]
+                       for _ in range(N_LAYERS)]
+        self.x = {k: torch.randn((m, k), generator=gen, device="cuda") * 2
+                  for k in (896, 4864)}
+        self.sa = {k: (v.abs().amax() / 127).reshape(())
+                   for k, v in self.x.items()}
+        from repro_torch.kernels import ref
+        self.a = {k: ref.quantize_act_ref(v, self.sa[k]).to(torch.int8)
+                  for k, v in self.x.items()}
+
+    def run(self, call):
+        for layer in self.layers:
+            for (_, k, _), (w, sw) in zip(LAYER, layer):
+                call(k, w, sw)
+
+    def traffic(self, act_bytes, out_bytes, with_scales):
+        """(bytes, operations) of one sweep: every input read once and
+        every output written once."""
+        nbytes = ops_ = 0
+        for layer in self.layers:
+            for (_, k, n), (w, sw) in zip(LAYER, layer):
+                nbytes += w.numel() * w.element_size()
+                nbytes += self.m * k * act_bytes + self.m * n * out_bytes
+                if with_scales:
+                    nbytes += sw.numel() * 4 + 4
+                ops_ += 2 * self.m * k * n
+        return nbytes, ops_
+
+
+def _time_kernels(gen, rates):
+    """Per kernel: the sweep's median time, the plain version's, the
+    least time the card could take, and a library call's where one
+    takes the same inputs."""
+    from repro_torch.kernels import ops
+    out = {}
+    m = 8
+    sweeps = {"int4_packed": _Sweep(gen, m, "int4_packed"),
+              "int8": _Sweep(gen, m, "int8")}
+    plans = {
+        # kernel: (sweep, kernel call, plain call, act bytes, out
+        # bytes, scales read, peak key)
+        "fused_dequant_mm": (
+            "int4_packed",
+            lambda s, be: lambda k, w, sw: ops.fused_dequant_matmul(
+                s.x[k], w, sw, s.sa[k], kind="int4_packed", act="qdq",
+                backend=be),
+            4, 4, True, "f32"),
+        "fused_qmm": (
+            "int8",
+            lambda s, be: lambda k, w, sw: ops.fused_quantized_matmul(
+                s.x[k], w, sw, s.sa[k], kind="int8", backend=be),
+            4, 4, True, "int8"),
+        "qmm": (
+            "int8",
+            lambda s, be: lambda k, w, sw: ops.int8_matmul(
+                s.a[k], w, backend=be),
+            1, 4, False, "int8"),
+        "qmm_packed": (
+            "int4_packed",
+            lambda s, be: lambda k, w, sw: ops.int4_matmul_packed(
+                s.a[k], w, backend=be),
+            1, 4, False, "int8"),
+    }
+    for name, (sk, make, act_b, out_b, scales, peak) in plans.items():
+        s = sweeps[sk]
+        ms = median_ms(lambda: s.run(make(s, "kernel")))
+        plain_ms = median_ms(lambda: s.run(make(s, "ref")), reps=5)
+        nbytes, nops = s.traffic(act_b, out_b, scales)
+        t_bytes = nbytes / rates["bytes_per_s"] * 1e3
+        t_ops = nops / rates[peak] * 1e3
+        library_ms = None
+        if name == "qmm":
+            library_ms = _int_mm_ms(s)
+        out[name] = {"ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": max(t_bytes, t_ops),
+                     "bound_by": "bytes" if t_bytes >= t_ops
+                     else "operations",
+                     "library_ms": library_ms, "bytes": nbytes,
+                     "operations": nops, "calls": N_LAYERS * len(LAYER),
+                     "rows": m}
+    # the prefill-wave shape (8 slots x a 32-token chunk): where
+    # torch._int_mm takes the inputs, both timed over one layer
+    wave = _Sweep(gen, 256, "int8")
+    wave.layers = wave.layers[:1]
+    out["qmm_at_256_rows"] = {
+        "ms": median_ms(lambda: wave.run(
+            lambda k, w, sw: ops.int8_matmul(wave.a[k], w))),
+        "int_mm_ms": _int_mm_ms(wave)}
+    return out
+
+
+def _int_mm_ms(s):
+    """torch._int_mm over the sweep, or None where it refuses the shape
+    (it wants more than 16 rows): a yardstick, never used by the port."""
+    try:
+        s.run(lambda k, w, sw: torch._int_mm(s.a[k], w))
+    except RuntimeError as exc:
+        REPORT.setdefault("int_mm_refused", {})[s.m] = str(exc)[:200]
+        return None
+    return median_ms(lambda: s.run(lambda k, w, sw: torch._int_mm(s.a[k], w)))
+
+
+def phase_kernels(rates):
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1234)
+    err, n_cmp = _check_kernels(gen)
+    timing = _time_kernels(gen, rates)
+    log(2, comparisons=n_cmp, max_abs_err=err, timing=timing)
+    return err, timing
+
+
+# ------------------------------------------------------------- phase 3
+
+def _requests(cfg, n, lo, hi, max_new, seed):
+    from repro_torch.serving import Request
+    rng = np.random.default_rng(seed)
+    return [Request(rid=i, prompt=rng.integers(
+                0, cfg.vocab, int(rng.integers(lo, hi + 1)), dtype=np.int32),
+                max_new_tokens=max_new) for i in range(n)]
+
+
+def _serve(cfg, api, params, config, reqs):
+    from repro_torch.serving.engine import ServingEngine
+    eng = ServingEngine(cfg, api, params, config=config)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for r in reqs:
+        eng.submit(r)
+    eng.run_until_drained()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    for r in reqs:
+        if not r.done or r.new_tokens != r.budget:
+            raise AssertionError(f"request {r.rid} ended with "
+                                 f"{r.new_tokens}/{r.budget} tokens")
+    m = eng.metrics()
+    new = sum(r.new_tokens for r in reqs)
+    numbers = {"requests": len(reqs), "new_tokens": new, "wall_s": wall,
+               "tok_per_s": new / wall, "ttft_s": m["ttft_s"],
+               "e2e_s": m["e2e_s"], "host_syncs": m["counters"]["host_syncs"],
+               "decode_steps": m["counters"]["decode_steps"],
+               "prefill_calls": m["counters"]["prefill_calls"]}
+    return eng, {r.rid: list(r.tokens) for r in reqs}, numbers
+
+
+def phase_serving(name, smi, params, cfg_full, profile):
+    from repro_torch.kernels import ops
+    from repro_torch.models import registry
+    from repro_torch.serving import EngineConfig
+    cfg = dataclasses.replace(cfg_full, precision_policy="int4_serving")
+    api = registry.build(cfg)
+    raw = sum(4 * w.numel() for _, w in _projections(cfg, params))
+    results, streams = {}, {}
+    scales = "auto"
+    ops.reset_launch_counts()
+    for blk in (1, 4):
+        reqs = _requests(cfg, 16, 8, 64, 16, seed=7)
+        eng, streams[blk], results[f"int4_block{blk}"] = _serve(
+            cfg, api, params, EngineConfig(
+                batch_slots=8, cache_len=256, prefill_chunk=32,
+                decode_block=blk, act_calibration=scales,
+                fused_executors="on"), reqs)
+        scales = eng.act_scales
+    launches = ops.launch_counts()
+    if launches["fused_dequant_mm"] <= 0:
+        raise AssertionError(f"the serving path launched no "
+                             f"fused_dequant_mm: {launches}")
+    if streams[1] != streams[4]:
+        raise AssertionError("greedy streams differ between decode_block "
+                             "1 and 4")
+    staged = eng.staged_trace_count()
+    wq = eng.weight_quant_trace_count()
+    if staged or wq:
+        raise AssertionError(f"staged={staged} weight_quant={wq}: the fused "
+                             f"path must stage and quantize nothing")
+    proj = eng.weight_bytes()["projections"]
+    if proj > raw / 6:
+        raise AssertionError(f"int4 projections hold {proj} bytes, over "
+                             f"1/6 of fp32's {raw}")
+    profile_numbers = _profile(eng, cfg) if profile else None
+
+    cfg8 = dataclasses.replace(cfg_full, precision_policy="int8_serving")
+    api8 = registry.build(cfg8)
+    reqs = _requests(cfg8, 8, 8, 64, 8, seed=8)
+    eng8, _, results["int8_block4"] = _serve(
+        cfg8, api8, params, EngineConfig(
+            batch_slots=8, cache_len=256, prefill_chunk=32, decode_block=4,
+            act_calibration="auto", fused_executors="on"), reqs)
+    log(3, card=smi, launches=launches, projection_bytes=proj,
+        fp32_projection_bytes=raw, staged=staged, weight_quant=wq,
+        act_quant=eng.act_quant_trace_count(), runs=results,
+        profile=profile_numbers)
+    return launches, eng8.act_scales
+
+
+def _projections(cfg, params):
+    from repro_torch.models import registry
+    from repro_torch.quant.prepare import iter_projection_weights
+    return list(iter_projection_weights(params,
+                                        registry.projection_paths(cfg)))
+
+
+def _profile(eng, cfg):
+    """Kernel time by name and the device's busy share over one decode
+    block of a full batch (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+    for r in _requests(cfg, 8, 8, 8, 12, seed=9):
+        eng.submit(r)
+    while any(r is None or r.next_input is None for r in eng.slot_req):
+        eng.step()                       # admit and prefill all eight
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        eng.step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    eng.run_until_drained()
+    rows = []
+    for ev in prof.key_averages():
+        dev = getattr(ev, "device_time_total", None)
+        if dev is None:
+            dev = getattr(ev, "cuda_time_total", 0)
+        if dev and ev.device_type == torch.autograd.DeviceType.CUDA:
+            rows.append((ev.key, dev / 1e3, ev.count))
+    rows.sort(key=lambda r: -r[1])
+    busy_ms = sum(r[1] for r in rows)
+    return {"wall_ms": wall * 1e3, "decode_steps": eng.decode_block,
+            "device_busy_ms": busy_ms,
+            "device_idle_share": (1 - busy_ms / (wall * 1e3))
+            if rows else None,
+            "top_kernels_ms": [[k, t, c] for k, t, c in rows[:15]]}
+
+
+# ------------------------------------------------------------- phase 4
+
+def phase_exact(params, cfg_full):
+    from repro_torch.core.policy import (PrecisionPolicy, PrecisionSpec,
+                                         register_policy)
+    from repro_torch.kernels import ops
+    from repro_torch.models import registry
+    from repro_torch.quant.calibrate import calibrate_act_scales
+    from repro_torch.serving import EngineConfig
+    register_policy(PrecisionPolicy("int4_exact",
+                                    default=PrecisionSpec("int4",
+                                                          exact=True)))
+    out, launches = {}, {}
+    for policy in ("fidelity_int8", "int4_exact"):
+        cfg = dataclasses.replace(cfg_full, precision_policy=policy)
+        api = registry.build(cfg)
+        scales = calibrate_act_scales(cfg, api, params)
+        streams = {}
+        ops.reset_launch_counts()
+        for mode in ("on", "off"):
+            _, streams[mode], out[f"{policy}_{mode}"] = _serve(
+                cfg, api, params, EngineConfig(
+                    batch_slots=8, cache_len=256, prefill_chunk=32,
+                    decode_block=4, act_calibration=scales,
+                    fused_executors=mode),
+                _requests(cfg, 8, 8, 64, 8, seed=11))
+        launches[policy] = ops.launch_counts()
+        if streams["on"] != streams["off"]:
+            raise AssertionError(f"{policy}: fused on and off give "
+                                 f"different greedy streams")
+    need = {"fidelity_int8": ("fused_qmm", "qmm"),
+            "int4_exact": ("fused_qmm", "qmm_packed")}
+    for policy, kernels in need.items():
+        for k in kernels:
+            if launches[policy][k] <= 0:
+                raise AssertionError(f"{policy} launched no {k}: "
+                                     f"{launches[policy]}")
+    log(4, launches=launches, runs=out)
+    return launches
+
+
+# ------------------------------------------------------------- phase 5
+
+def phase_card_vs_cpu(params, cfg_full, scales):
+    from repro_torch.convert import to_numpy, tree_to
+    from repro_torch.core.policy import get_policy
+    from repro_torch.layers.mplinear import executor_variant
+    from repro_torch.models import registry
+    cfg = dataclasses.replace(cfg_full, precision_policy="int8_serving")
+    api = registry.build(cfg)
+    prepared = api.prepare(params, get_policy("int8_serving"),
+                           act_scales=scales)
+    rng = np.random.default_rng(5)
+    tokens = rng.integers(0, cfg.vocab, (2, 32), dtype=np.int32)
+    lengths = np.array([32, 20], np.int32)
+    results = {}
+    for where, dev, tree in (("card", "cuda", prepared),
+                             ("cpu", "cpu", tree_to(prepared, "cpu"))):
+        caches = api.init_cache(2, 64, dev)
+        t = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
+        t0 = time.perf_counter()
+        with torch.no_grad(), executor_variant("fused"):
+            caches = api.prefill_chunk(
+                tree, {"tokens": t(tokens), "offsets": t(np.zeros(2, np.int32)),
+                       "lengths": t(lengths)}, caches)
+            logits, caches = api.decode_step(
+                tree, {"token": t(tokens[:, -1:]), "pos": t(lengths)}, caches)
+        results[where] = (to_numpy(logits), to_numpy(caches["b0"]),
+                        time.perf_counter() - t0)
+    lg, lc = results["card"][0], results["cpu"][0]
+    if not np.all(np.isfinite(lg)) or lg.shape != (2, cfg.padded_vocab):
+        raise AssertionError(f"card logits: shape {lg.shape}, finite "
+                             f"{bool(np.all(np.isfinite(lg)))}")
+    real = slice(0, cfg.vocab)          # padded columns are -1e30 on both
+    lg, lc = lg[:, real], lc[:, real]
+    span = float(lc.max() - lc.min())
+    diff = float(np.abs(lg - lc).max())
+    rel_rms = float(np.sqrt(np.mean((lg - lc) ** 2) / np.mean(lc ** 2)))
+    kc, kp = results["card"][1], results["cpu"][1]
+    valid = kp[2][0] >= 0                 # the slots the chunk wrote
+    k_rms = [float(np.sqrt(np.mean((kc[0][i][valid] - kp[0][i][valid]) ** 2)
+                           / np.mean(kp[0][i][valid] ** 2)))
+             for i in range(kc[0].shape[0])]
+    log(5, logit_max_abs_diff=diff, logit_range=span,
+        max_tolerance=CPU_LOGIT_MAX_OF_RANGE * span, logit_rel_rms=rel_rms,
+        rel_rms_tolerance=CPU_LOGIT_REL_RMS,
+        greedy_tokens_equal=bool(np.array_equal(lg.argmax(-1),
+                                                lc.argmax(-1))),
+        k_cache_rel_rms_by_layer=k_rms,
+        card_s=results["card"][2], cpu_s=results["cpu"][2])
+    if not np.array_equal(kc[2], kp[2]):
+        raise AssertionError("card and CPU caches hold different positions")
+    if k_rms[0] > FIRST_LAYER_REL_RMS:
+        raise AssertionError(f"card vs CPU first-layer K cache: relative "
+                             f"RMS {k_rms[0]} (tolerance "
+                             f"{FIRST_LAYER_REL_RMS})")
+    if diff > CPU_LOGIT_MAX_OF_RANGE * span or rel_rms > CPU_LOGIT_REL_RMS:
+        raise AssertionError(
+            f"card vs CPU logits: max diff {diff} over range {span} "
+            f"(tolerance {CPU_LOGIT_MAX_OF_RANGE * span}), relative RMS "
+            f"{rel_rms} (tolerance {CPU_LOGIT_REL_RMS})")
+
+
+# ---------------------------------------------------------------- main
+
+KERNELS = {
+    "fused_dequant_mm": ("src/repro_torch/kernels/csrc/fused_dequant.cu",
+                         "src/repro/kernels/fused.py:108"),
+    "fused_qmm": ("src/repro_torch/kernels/csrc/qmm.cu",
+                  "src/repro/kernels/fused.py:85"),
+    "qmm": ("src/repro_torch/kernels/csrc/qmm.cu",
+            "src/repro/kernels/qmm.py:25"),
+    "qmm_packed": ("src/repro_torch/kernels/csrc/qmm.cu",
+                   "src/repro/kernels/qmm.py:38"),
+}
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--report", help="also write every number to this "
+                    "JSON file")
+    ap.add_argument("--profile", action="store_true",
+                    help="profile one decode block in phase 3")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; the port's smoke test needs one",
+              file=sys.stderr)
+        return 1
+    src = os.path.join(HERE, "src")
+    if not os.path.isdir(os.path.join(src, "repro_torch")):
+        print(f"chip_smoke: no port package under {src}", file=sys.stderr)
+        return 1
+    sys.path.insert(0, src)
+    if args.report:
+        REPORT_PATH.append(args.report)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import registry
+
+    name, smi = phase_build()
+    rates_key, rates = card_rates(name)
+    REPORT["rates"] = {"card": rates_key, **rates}
+    err, timing = phase_kernels(rates)
+    cfg = get_config("qwen2-0.5b")
+    params = registry.init_params(cfg, seed=0)
+    launches3, scales8 = phase_serving(name, smi, params, cfg, args.profile)
+    launches4 = phase_exact(params, cfg)
+    phase_card_vs_cpu(params, cfg, scales8)
+
+    main_launches = {
+        "fused_dequant_mm": launches3["fused_dequant_mm"],
+        "fused_qmm": launches4["fidelity_int8"]["fused_qmm"]
+        + launches4["int4_exact"]["fused_qmm"],
+        "qmm": launches4["fidelity_int8"]["qmm"],
+        "qmm_packed": launches4["int4_exact"]["qmm_packed"],
+    }
+    kernels = []
+    for kname, (source, replaces) in KERNELS.items():
+        t = timing[kname]
+        kernels.append({
+            "name": kname, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": main_launches[kname],
+            "max_abs_err": err[kname], "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
+    REPORT["kernels"] = kernels
+    REPORT["card"] = smi
+    REPORT["total_s"] = time.perf_counter() - T_START
+    write_report()
+    print(f"total {REPORT['total_s']:.1f} s on {smi}", flush=True)
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,129 @@
+"""Model configuration: the port's own copy of ``repro.configs``.
+
+``ModelConfig``/``MoESpec``/``InputShape`` mirror ``repro/configs/base.py``
+field for field; ``get_config`` knows the architectures this port serves
+so far (qwen2-0.5b, ``repro/configs/qwen2_0_5b.py``) and ``reduced``
+repeats ``repro/configs/__init__.py::reduced`` (the family-preserving
+tiny variant the CPU tests run).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+
+@dataclasses.dataclass(frozen=True)
+class MoESpec:
+    n_experts: int
+    top_k: int
+    d_expert: int
+    capacity_factor: float = 1.25
+    dispatch: str = "einsum"
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    """One architecture. ``family`` selects the model implementation;
+    the port implements the dense 'lm' family so far."""
+
+    arch_id: str
+    family: str
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab: int
+    head_dim: Optional[int] = None
+    act: str = "silu"
+    norm: str = "rms"
+    qkv_bias: bool = False
+    qk_norm: bool = False
+    rope_theta: float = 10000.0
+    rotary_pct: float = 1.0
+    attn_pattern: str = "full"
+    window: Optional[int] = None
+    logit_softcap: Optional[float] = None
+    attn_softcap: Optional[float] = None
+    post_norms: bool = False
+    tied_embeddings: bool = True
+    attn_scale: Optional[float] = None
+    moe: Optional[MoESpec] = None
+    d_rnn: Optional[int] = None
+    conv_width: int = 4
+    rec_pattern: Tuple[str, ...] = ()
+    n_enc_layers: Optional[int] = None
+    frontend_dim: Optional[int] = None
+    n_patches: Optional[int] = None
+    vit_dim: Optional[int] = None
+    precision_policy: str = "bf16"
+    param_dtype: str = "float32"
+    compute_dtype: str = "bfloat16"
+    remat: str = "full"
+
+    @property
+    def head_dim_(self) -> int:
+        return self.head_dim or self.d_model // self.n_heads
+
+    @property
+    def padded_vocab(self) -> int:
+        """Embedding rows padded to a multiple of 64 (the extra logit
+        columns are masked in the head)."""
+        return -(-self.vocab // 64) * 64
+
+
+@dataclasses.dataclass(frozen=True)
+class InputShape:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str
+
+
+def qwen2_0_5b() -> ModelConfig:
+    """Qwen2-0.5B [arXiv:2407.10671; hf:Qwen/Qwen2-0.5B]: 24L, d_model
+    896, 14 heads (GQA kv=2, head_dim 64), d_ff 4864, vocab 151936, QKV
+    bias, RMSNorm, SwiGLU, tied embeddings, rope 1e6."""
+    return ModelConfig(
+        arch_id="qwen2-0.5b", family="lm", n_layers=24, d_model=896,
+        n_heads=14, n_kv_heads=2, head_dim=64, d_ff=4864, vocab=151936,
+        qkv_bias=True, norm="rms", act="silu", rope_theta=1e6,
+        attn_pattern="full", tied_embeddings=True)
+
+
+_CONFIGS = {"qwen2-0.5b": qwen2_0_5b}
+ARCH_IDS = tuple(_CONFIGS)
+
+
+def get_config(arch_id: str) -> ModelConfig:
+    try:
+        return _CONFIGS[arch_id]()
+    except KeyError:
+        raise KeyError(f"{arch_id!r} is not ported yet "
+                       f"(ported: {ARCH_IDS})") from None
+
+
+def reduced(arch_id: str) -> ModelConfig:
+    """Family-preserving tiny config for CPU tests (same rules as the
+    reference's ``reduced``)."""
+    cfg = get_config(arch_id)
+    kv = max(1, min(cfg.n_kv_heads, 2))
+    moe = None
+    if cfg.moe:
+        moe = MoESpec(n_experts=min(cfg.moe.n_experts, 4),
+                      top_k=min(cfg.moe.top_k, 2), d_expert=32,
+                      capacity_factor=2.0)
+    n_layers = {"lm": 2, "rwkv": 2, "vlm": 2, "encdec": 2,
+                "griffin": 5}[cfg.family]
+    if cfg.attn_pattern == "alt_local_global":
+        n_layers = 2
+    return dataclasses.replace(
+        cfg, n_layers=n_layers, d_model=64, n_heads=4, n_kv_heads=kv,
+        head_dim=16, d_ff=128, vocab=512, moe=moe,
+        d_rnn=64 if cfg.d_rnn else None,
+        window=min(cfg.window, 16) if cfg.window else None,
+        n_enc_layers=2 if cfg.n_enc_layers else None,
+        frontend_dim=16 if cfg.frontend_dim else None,
+        n_patches=8 if cfg.n_patches else None,
+        vit_dim=32 if cfg.vit_dim else None,
+        remat="none")

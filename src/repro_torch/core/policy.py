@@ -1,0 +1,147 @@
+"""Per-layer mixed-precision policy (mirror of ``repro/core/policy.py``).
+
+A PrecisionPolicy maps parameter paths (regex over 'block/attn/wq'-style
+names) to a PrecisionSpec; ``layers.mplinear`` routes each projection's
+matmul by its spec's mode. The presets are the reference's. Policies
+loaded from autotune plans (``"plan:<file>"``) wait for the planner
+slice of the port.
+"""
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import math
+import re
+from typing import List, Optional, Tuple
+
+_ROUTING_TRACE: Optional[List[Tuple[str, str]]] = None
+
+
+@contextlib.contextmanager
+def trace_routing():
+    """Record every (path, mode) the active policies route while open."""
+    global _ROUTING_TRACE
+    records: List[Tuple[str, str]] = []
+    prev = _ROUTING_TRACE
+    _ROUTING_TRACE = records
+    try:
+        yield records
+    finally:
+        _ROUTING_TRACE = prev
+
+
+@dataclasses.dataclass(frozen=True)
+class IPUConfig:
+    """Static configuration of one IPU / MC-IPU — a copy of
+    ``repro/core/ipu.py::IPUConfig``'s fields and checks. In this slice
+    it only types ``PrecisionSpec.ipu``; the datapath that consumes it
+    is the paper-numerics slice."""
+
+    n: int = 16
+    w: int = 16
+    accum: str = "fp32"
+    sw_precision: Optional[int] = None
+    multi_cycle: bool = False
+    rounding: str = "trunc"
+    iter_order: str = "asc"
+    acc_l: int = 10
+    operand: str = "fp16"
+
+    def __post_init__(self):
+        if self.w < 10:
+            raise ValueError("IPU precision w must be >= 10 (sp = w-9 >= 1)")
+        if self.accum not in ("fp16", "fp32", "bf16"):
+            raise ValueError(f"bad accum {self.accum}")
+        if self.operand not in ("fp16", "bf16", "tf32"):
+            raise ValueError(f"bad operand {self.operand}")
+        if self.accum == "bf16" and self.sw_precision is None:
+            raise ValueError("accum='bf16' needs an explicit sw_precision")
+        if self.rounding not in ("trunc", "floor"):
+            raise ValueError(f"bad rounding {self.rounding}")
+        if self.n * 225 * (1 << (self.w - 9)) >= (1 << 31):
+            raise ValueError(f"n={self.n}, w={self.w} overflows int32 adder")
+        if 33 + math.ceil(math.log2(self.n)) + self.acc_l >= 54:
+            raise ValueError("accumulator exceeds two-limb range")
+
+
+@dataclasses.dataclass(frozen=True)
+class PrecisionSpec:
+    mode: str = "bf16"         # bf16|fp32|int8|int4|fp8|fp4|fp16_ipu
+    exact: bool = False        # route through the bit-exact int kernels
+    ipu: Optional[IPUConfig] = None
+    group_size: Optional[int] = None
+
+    def __post_init__(self):
+        if self.mode not in ("bf16", "fp32", "int8", "int4",
+                             "fp8", "fp4", "fp16_ipu"):
+            raise ValueError(self.mode)
+        if self.group_size is not None and self.group_size < 1:
+            raise ValueError(f"group_size must be positive, got "
+                             f"{self.group_size}")
+
+    @property
+    def weight_bits(self) -> Optional[int]:
+        return {"int8": 8, "int4": 4}.get(self.mode)
+
+
+@dataclasses.dataclass(frozen=True)
+class PrecisionPolicy:
+    """Ordered (regex, spec) rules; first match wins; default last."""
+
+    name: str
+    rules: Tuple[Tuple[str, PrecisionSpec], ...] = ()
+    default: PrecisionSpec = PrecisionSpec("bf16")
+
+    def spec_for(self, path: str) -> PrecisionSpec:
+        spec = self.default
+        for pattern, rule_spec in self.rules:
+            if re.search(pattern, path):
+                spec = rule_spec
+                break
+        if _ROUTING_TRACE is not None:
+            _ROUTING_TRACE.append((path, spec.mode))
+        return spec
+
+
+BF16 = PrecisionPolicy("bf16")
+FP32 = PrecisionPolicy("fp32", default=PrecisionSpec("fp32"))
+INT8_SERVING = PrecisionPolicy(
+    "int8_serving", rules=((r"router|lm_head", PrecisionSpec("bf16")),),
+    default=PrecisionSpec("int8"))
+INT4_SERVING = PrecisionPolicy(
+    "int4_serving", rules=((r"router|lm_head", PrecisionSpec("bf16")),),
+    default=PrecisionSpec("int4"))
+PAPER_HYBRID = PrecisionPolicy(
+    "paper_hybrid",
+    rules=(
+        (r"router|lm_head|embed", PrecisionSpec("fp16_ipu",
+                                                ipu=IPUConfig(n=16, w=28))),
+        (r"attn/wo", PrecisionSpec("fp16_ipu", ipu=IPUConfig(n=16, w=16))),
+    ),
+    default=PrecisionSpec("int4"))
+FIDELITY_FP16_IPU = PrecisionPolicy(
+    "fidelity_fp16_ipu",
+    default=PrecisionSpec("fp16_ipu", exact=True,
+                          ipu=IPUConfig(n=16, w=16, accum="fp32")))
+FIDELITY_INT8 = PrecisionPolicy(
+    "fidelity_int8", default=PrecisionSpec("int8", exact=True))
+
+POLICIES = {p.name: p for p in (
+    BF16, FP32, INT8_SERVING, INT4_SERVING, PAPER_HYBRID,
+    FIDELITY_FP16_IPU, FIDELITY_INT8)}
+
+
+def register_policy(policy: PrecisionPolicy) -> PrecisionPolicy:
+    """Register a policy under its name (latest wins)."""
+    POLICIES[policy.name] = policy
+    return policy
+
+
+def get_policy(name: str) -> PrecisionPolicy:
+    """Resolve a policy name. ``"plan:<file>"`` (autotune plan
+    artifacts) waits for the planner slice of the port."""
+    if name.startswith("plan:"):
+        raise NotImplementedError(
+            "plan: policies (autotune plan artifacts) wait for the "
+            "planner slice of the port")
+    return POLICIES[name]

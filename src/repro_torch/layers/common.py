@@ -1,0 +1,119 @@
+"""Shared building blocks: initializers, norms, RoPE, activation
+(mirror of ``repro/layers/common.py``)."""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+
+def _trunc_normal(shape, generator: torch.Generator, device) -> torch.Tensor:
+    t = torch.empty(shape, dtype=torch.float32, device=device)
+    return torch.nn.init.trunc_normal_(t, 0.0, 1.0, -3.0, 3.0,
+                                       generator=generator)
+
+
+def dense_init(generator: torch.Generator, d_in: int, d_out: int,
+               device, dtype=torch.float32, lead=(),
+               scale: Optional[float] = None) -> torch.Tensor:
+    """Truncated normal at +-3 sigma times ``1/sqrt(d_in)`` (the
+    reference's distribution; the bits differ from jax.random's)."""
+    scale = scale if scale is not None else 1.0 / math.sqrt(d_in)
+    return (_trunc_normal((*lead, d_in, d_out), generator, device)
+            * scale).to(dtype)
+
+
+def embed_init(generator: torch.Generator, vocab: int, d: int, device,
+               dtype=torch.float32) -> torch.Tensor:
+    return (_trunc_normal((vocab, d), generator, device)
+            * (d ** -0.5)).to(dtype)
+
+
+def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6,
+             zero_centered: bool = False) -> torch.Tensor:
+    dt = x.dtype
+    x = x.to(torch.float32)
+    var = torch.mean(x * x, dim=-1, keepdim=True)
+    x = x * torch.rsqrt(var + eps)
+    w = weight.to(torch.float32)
+    if zero_centered:
+        w = 1.0 + w
+    return (x * w).to(dt)
+
+
+def layer_norm(x, weight, bias, eps: float = 1e-5):
+    dt = x.dtype
+    x = x.to(torch.float32)
+    mu = torch.mean(x, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(x - mu), dim=-1, keepdim=True)
+    x = (x - mu) * torch.rsqrt(var + eps)
+    x = x * weight.to(torch.float32)
+    if bias is not None:
+        x = x + bias.to(torch.float32)
+    return x.to(dt)
+
+
+def apply_norm(kind: str, x, params, eps=1e-6):
+    if kind == "rms":
+        return rms_norm(x, params["w"], eps)
+    if kind == "rms_zc":
+        return rms_norm(x, params["w"], eps, zero_centered=True)
+    if kind == "ln":
+        return layer_norm(x, params["w"], params.get("b"), eps)
+    raise ValueError(kind)
+
+
+def norm_init(kind: str, d: int, device, dtype=torch.float32, lead=()):
+    if kind == "rms":
+        return {"w": torch.ones((*lead, d), dtype=dtype, device=device)}
+    if kind == "rms_zc":
+        return {"w": torch.zeros((*lead, d), dtype=dtype, device=device)}
+    if kind == "ln":
+        return {"w": torch.ones((*lead, d), dtype=dtype, device=device),
+                "b": torch.zeros((*lead, d), dtype=dtype, device=device)}
+    raise ValueError(kind)
+
+
+def activation(name: str):
+    return {"silu": F.silu,
+            "gelu": lambda x: F.gelu(x),
+            "gelu_tanh": lambda x: F.gelu(x, approximate="tanh"),
+            "relu": F.relu}[name]
+
+
+def rope_freqs(head_dim: int, rotary_dim: int, theta: float,
+               device) -> torch.Tensor:
+    exps = (torch.arange(0, rotary_dim, 2, dtype=torch.float32,
+                         device=device) / rotary_dim)
+    return 1.0 / (torch.tensor(theta, dtype=torch.float32,
+                               device=device) ** exps)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float = 10000.0, rotary_pct: float = 1.0
+               ) -> torch.Tensor:
+    """x: (B, S, H, D); positions: (B, S) int. Rotates the first
+    ``rotary_pct * D`` dims (pairwise halves)."""
+    d = x.shape[-1]
+    rot = int(d * rotary_pct)
+    rot -= rot % 2
+    if rot == 0:
+        return x
+    inv = rope_freqs(d, rot, theta, x.device)
+    ang = positions.to(torch.float32)[:, :, None] * inv
+    cos = torch.cos(ang)[:, :, None, :]
+    sin = torch.sin(ang)[:, :, None, :]
+    x_rot, x_pass = x[..., :rot], x[..., rot:]
+    x1, x2 = torch.chunk(x_rot.to(torch.float32), 2, dim=-1)
+    out1 = x1 * cos - x2 * sin
+    out2 = x2 * cos + x1 * sin
+    x_rot = torch.cat([out1, out2], -1).to(x.dtype)
+    return torch.cat([x_rot, x_pass], -1) if rot < d else x_rot
+
+
+def softcap(x: torch.Tensor, cap: Optional[float]) -> torch.Tensor:
+    if cap is None:
+        return x
+    return (cap * torch.tanh(x.to(torch.float32) / cap)).to(x.dtype)

@@ -1,0 +1,224 @@
+"""Decoder-only transformer LM, dense path (mirror of
+``repro/models/lm.py``).
+
+The parameter tree keeps the reference's paths and layout, including
+the stacked leading group axis of every ``params["blocks"]["b<i>"]``
+leaf, so weights convert leaf by leaf. The reference's ``lax.scan`` over
+that axis is a Python loop here; its activation-sharding pins mean
+nothing on one GPU and are gone. KV caches are stacked the same way and
+updated in place (``layers.attention``). MoE blocks wait for a later
+slice.
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.configs import ModelConfig
+from repro_torch.core.policy import get_policy
+from repro_torch.device import resolve_device
+from repro_torch.layers import attention, mlp
+from repro_torch.layers.attention import AttnConfig, KVCache
+from repro_torch.layers.common import (apply_norm, dense_init, embed_init,
+                                       norm_init, softcap)
+from repro_torch.layers.mplinear import _dot_f32
+from repro_torch.quant.prepare import PreparedWeight
+
+
+def group_kinds(cfg: ModelConfig) -> Tuple[str, ...]:
+    if cfg.attn_pattern == "full":
+        return ("full",)
+    if cfg.attn_pattern == "swa":
+        return ("swa",)
+    if cfg.attn_pattern == "alt_local_global":
+        return ("swa", "full")
+    raise ValueError(cfg.attn_pattern)
+
+
+def attn_cfg(cfg: ModelConfig, kind: str) -> AttnConfig:
+    return AttnConfig(
+        d_model=cfg.d_model, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+        head_dim=cfg.head_dim_, qkv_bias=cfg.qkv_bias, qk_norm=cfg.qk_norm,
+        rope_theta=cfg.rope_theta, rotary_pct=cfg.rotary_pct,
+        window=cfg.window if kind == "swa" else None,
+        attn_softcap=cfg.attn_softcap, causal=True, scale=cfg.attn_scale)
+
+
+def _check_dense(cfg: ModelConfig):
+    if cfg.moe:
+        raise NotImplementedError(
+            f"{cfg.arch_id}: MoE blocks wait for a later slice of the port")
+
+
+def _block_init(gen, cfg: ModelConfig, kind: str, device, dtype, lead):
+    p = {
+        "ln1": norm_init(cfg.norm, cfg.d_model, device, dtype, lead),
+        "attn": attention.init(gen, attn_cfg(cfg, kind), device, dtype, lead),
+        "ln2": norm_init(cfg.norm, cfg.d_model, device, dtype, lead),
+        "mlp": mlp.init(gen, cfg.d_model, cfg.d_ff, device, dtype, lead),
+    }
+    if cfg.post_norms:
+        p["post_ln1"] = norm_init(cfg.norm, cfg.d_model, device, dtype, lead)
+        p["post_ln2"] = norm_init(cfg.norm, cfg.d_model, device, dtype, lead)
+    return p
+
+
+def init(cfg: ModelConfig, seed: int = 0, device=None):
+    """Random parameters from a seeded ``torch.Generator`` on the target
+    device: truncated normal at +-3 sigma times 1/sqrt(d_in), and
+    d**-0.5 for the embedding (the reference's distribution, not its
+    bits). Defaults to the CUDA device; pass ``device="cpu"`` for CPU."""
+    _check_dense(cfg)
+    device = resolve_device(device)
+    dtype = getattr(torch, cfg.param_dtype)
+    kinds = group_kinds(cfg)
+    if cfg.n_layers % len(kinds):
+        raise ValueError(f"{cfg.arch_id}: {cfg.n_layers} layers do not "
+                         f"split into groups of {kinds}")
+    n_groups = cfg.n_layers // len(kinds)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    params = {
+        "embed": {"w": embed_init(gen, cfg.padded_vocab, cfg.d_model,
+                                  device, dtype)},
+        "blocks": {f"b{i}": _block_init(gen, cfg, kind, device, dtype,
+                                        (n_groups,))
+                   for i, kind in enumerate(kinds)},
+        "final_norm": norm_init(cfg.norm, cfg.d_model, device, dtype),
+    }
+    if not cfg.tied_embeddings:
+        params["lm_head"] = {"w": dense_init(gen, cfg.d_model,
+                                             cfg.padded_vocab, device,
+                                             dtype)}
+    return params
+
+
+def layer_tree(tree, i: int):
+    """Stacked group ``i`` of a block subtree (views, no copy)."""
+    if isinstance(tree, dict):
+        return {k: layer_tree(v, i) for k, v in tree.items()}
+    if isinstance(tree, PreparedWeight):
+        return tree.index(i)
+    return tree[i]
+
+
+def _embed(params, cfg: ModelConfig, tokens):
+    x = params["embed"]["w"][tokens]
+    x = x.to(getattr(torch, cfg.compute_dtype))
+    if cfg.norm == "rms_zc":
+        x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype)
+    return x
+
+
+def _head(params, cfg: ModelConfig, x):
+    """Logits in f32. The tied head casts the (padded_vocab, d) embedding
+    to the compute dtype on every call, as the reference does
+    (``w.T.astype(x.dtype)``)."""
+    if cfg.tied_embeddings:
+        w = params["embed"]["w"].T
+    else:
+        w = params["lm_head"]["w"]
+    logits = _dot_f32(x, w, x.dtype)
+    logits = softcap(logits, cfg.logit_softcap)
+    if cfg.padded_vocab != cfg.vocab:
+        col = torch.arange(cfg.padded_vocab, device=logits.device)
+        logits = logits.masked_fill(col >= cfg.vocab, -1e30)
+    return logits
+
+
+def _apply_block(params, cfg: ModelConfig, kind: str, x, positions, policy,
+                 mode: str, cache: Optional[KVCache], pos, valid=None):
+    path = f"block/{kind}/attn"
+    acfg = attn_cfg(cfg, kind)
+    h = apply_norm(cfg.norm, x, params["ln1"])
+    if mode == "prefill":
+        a, cache = attention.prefill(params["attn"], acfg, h, positions,
+                                     cache, policy, path)
+    elif mode == "chunk":
+        a, cache = attention.prefill_chunk(params["attn"], acfg, h,
+                                           positions, valid, cache, policy,
+                                           path)
+    elif mode == "decode":
+        a, cache = attention.decode_step(params["attn"], acfg, h, pos, cache,
+                                         policy, path)
+    else:
+        raise ValueError(f"unknown block mode {mode!r}")
+    if cfg.post_norms:
+        a = apply_norm(cfg.norm, a, params["post_ln1"])
+    x = x + a
+    h = apply_norm(cfg.norm, x, params["ln2"])
+    f = mlp.forward(params["mlp"], h, policy, "block/mlp", cfg.act)
+    if cfg.post_norms:
+        f = apply_norm(cfg.norm, f, params["post_ln2"])
+    return x + f
+
+
+def _run_blocks(params, cfg: ModelConfig, x, positions, mode: str, caches,
+                pos=None, valid=None):
+    _check_dense(cfg)
+    policy = get_policy(cfg.precision_policy)
+    kinds = group_kinds(cfg)
+    for gi in range(cfg.n_layers // len(kinds)):
+        for i, kind in enumerate(kinds):
+            c = caches[f"b{i}"]
+            x = _apply_block(layer_tree(params["blocks"][f"b{i}"], gi), cfg,
+                             kind, x, positions, policy, mode,
+                             KVCache(c.k[gi], c.v[gi], c.pos[gi]), pos,
+                             valid=valid)
+    return x
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, device=None,
+               dtype=torch.bfloat16) -> Dict[str, KVCache]:
+    """Stacked (n_groups, ...) caches; SWA groups get window-sized rings."""
+    device = resolve_device(device)
+    kinds = group_kinds(cfg)
+    n_groups = cfg.n_layers // len(kinds)
+    out = {}
+    for i, kind in enumerate(kinds):
+        cap = max_len
+        if kind == "swa" and cfg.window is not None:
+            cap = min(cfg.window, max_len)
+        out[f"b{i}"] = attention.init_cache(batch, cap, attn_cfg(cfg, kind),
+                                            device, dtype, lead=(n_groups,))
+    return out
+
+
+def _arange(n: int, like: torch.Tensor) -> torch.Tensor:
+    return torch.arange(n, dtype=torch.int32, device=like.device)
+
+
+def prefill(params, cfg: ModelConfig, tokens, caches):
+    """tokens: (B, S) -> (last-position logits (B, V), caches)."""
+    b, s = tokens.shape
+    positions = _arange(s, tokens)[None, :].expand(b, s)
+    x = _embed(params, cfg, tokens)
+    x = _run_blocks(params, cfg, x, positions, "prefill", caches)
+    x = apply_norm(cfg.norm, x[:, -1:], params["final_norm"])
+    return _head(params, cfg, x)[:, 0], caches
+
+
+def prefill_chunk(params, cfg: ModelConfig, tokens, offsets, lengths,
+                  caches):
+    """Position-offset prefill continuation: ``tokens`` (B, S) is one
+    chunk of each row's prompt starting at absolute ``offsets`` (B,),
+    with ``lengths`` (B,) valid tokens per row (0 = row untouched).
+    Writes the chunk's K/V into the live caches; no logits."""
+    b, s = tokens.shape
+    ar = _arange(s, tokens)
+    positions = offsets.to(torch.int32)[:, None] + ar[None, :]
+    valid = ar[None, :] < lengths[:, None]
+    x = _embed(params, cfg, torch.where(valid, tokens,
+                                        torch.zeros_like(tokens)))
+    _run_blocks(params, cfg, x, positions, "chunk", caches, valid=valid)
+    return caches
+
+
+def decode_step(params, cfg: ModelConfig, token, pos, caches):
+    """token: (B, 1); pos: (B,) -> (logits (B, V), caches)."""
+    x = _embed(params, cfg, token)
+    x = _run_blocks(params, cfg, x, pos[:, None], "decode", caches, pos=pos)
+    x = apply_norm(cfg.norm, x, params["final_norm"])
+    return _head(params, cfg, x)[:, 0], caches

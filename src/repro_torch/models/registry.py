@@ -1,0 +1,190 @@
+"""Uniform model API, the lm part (mirror of ``repro/models/registry.py``).
+
+``build(cfg)`` -> :class:`ModelAPI` with ``init(seed, device)``,
+``prefill``, ``decode_step``, ``prefill_chunk``, ``init_cache(batch,
+max_len, device)`` and the ``prepare`` hook; ``projection_paths`` maps
+parameter-tree containers to policy paths; ``make_block_decode`` builds
+the blocked decode program the engine dispatches once per block.
+"""
+from __future__ import annotations
+
+import contextlib
+import re
+from typing import Any, Callable, NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.configs import ModelConfig
+from repro_torch.models import lm
+
+
+def _lm_projection_paths(cfg: ModelConfig) -> Callable[[str], Optional[str]]:
+    kinds = lm.group_kinds(cfg)
+
+    def path_for(p: str) -> Optional[str]:
+        m = re.fullmatch(r"blocks/b(\d+)/attn/(w[qkvo])", p)
+        if m:
+            return f"block/{kinds[int(m.group(1))]}/attn/{m.group(2)}"
+        m = re.fullmatch(r"blocks/b\d+/mlp/(w_(?:gate|up|down))", p)
+        if m:
+            return f"block/mlp/{m.group(1)}"
+        if re.fullmatch(r"blocks/b\d+/moe/(?:w_gate|w_up|w_down)", p):
+            return "block/moe/experts"
+        return None
+
+    return path_for
+
+
+def projection_paths(cfg: ModelConfig) -> Callable[[str], Optional[str]]:
+    """Container path -> policy path for every projection the policy
+    routes; None for everything else (embeddings, norms)."""
+    if cfg.family != "lm":
+        raise NotImplementedError(
+            f"family {cfg.family!r} waits for a later slice of the port")
+    return _lm_projection_paths(cfg)
+
+
+def _prepare_fn(cfg: ModelConfig) -> Callable:
+    def prepare(params, policy, act_scales=None):
+        from repro_torch.quant.prepare import prepare_params
+        return prepare_params(params, policy, projection_paths(cfg),
+                              act_scales=act_scales)
+
+    return prepare
+
+
+_BLOCK_DECODE_FAMILIES = ("lm", "vlm")
+
+
+def block_decode_eligible(cfg: ModelConfig) -> bool:
+    return cfg.family in _BLOCK_DECODE_FAMILIES
+
+
+class DecodeCarry(NamedTuple):
+    """Per-slot state of the blocked decode program (batch-leading device
+    tensors): current token, position, remaining budget (0 = inactive),
+    steps taken this block, stop ids (-1 unused), sampling parameters and
+    the (B, 2) random keys (``models.sampling``)."""
+
+    tok: Any
+    pos: Any
+    rem: Any
+    taken: Any
+    stops: Any
+    temp: Any
+    top_k: Any
+    top_p: Any
+    keys: Any
+
+
+def make_block_decode(api: "ModelAPI", n: int, policy=None,
+                      sample: bool = False, tracer=None,
+                      fused: bool = False) -> Callable:
+    """``n`` decode steps with on-device token selection:
+    ``fn(params, carry, state) -> (tokens (n, B) int32, carry, state)``.
+
+    Slots whose budget is spent feed the pad token at their own current
+    position (never position 0, which may hold live prompt context of a
+    slot still mid-prefill) and stop advancing. A selected token in the
+    slot's ``stops`` zeroes its budget on the device (EOS stopping).
+    ``fused=True`` runs every step under the 'fused' executor variant;
+    otherwise fake-quant projections are staged once for the block
+    (``quant.prepare.stage_params``). ``tracer`` marks the first call of
+    each program with an instant, as the reference marks each trace."""
+    if not block_decode_eligible(api.cfg):
+        raise ValueError(
+            f"family {api.cfg.family!r} is not eligible for blocked decode "
+            f"(want one of {_BLOCK_DECODE_FAMILIES})")
+    if policy is None:
+        from repro_torch.core.policy import get_policy
+        policy = get_policy(api.cfg.precision_policy)
+    first = [True]
+
+    def run(params, carry: DecodeCarry, state):
+        from repro_torch.layers.mplinear import executor_variant
+        from repro_torch.models.sampling import sample_tokens
+        from repro_torch.quant.prepare import stage_params
+        if tracer is not None and first[0]:
+            tracer.instant(f"first_call:block_decode[n={n}]", cat="compile")
+        first[0] = False
+        variant = contextlib.nullcontext()
+        if fused:
+            variant = executor_variant("fused")
+        else:
+            params = stage_params(params, policy, projection_paths(api.cfg))
+        c = carry
+        tok, pos, rem, taken, keys = c.tok, c.pos, c.rem, c.taken, c.keys
+        out = []
+        with variant:
+            for _ in range(n):
+                active = rem > 0
+                batch = {"token": torch.where(active, tok,
+                                              torch.zeros_like(tok))[:, None],
+                         "pos": pos}
+                logits, state = api.decode_step(params, batch, state)
+                if sample:
+                    keys2, nxt = sample_tokens(keys, logits, c.temp, c.top_k,
+                                               c.top_p)
+                    keys = torch.where(active[:, None], keys2, keys)
+                else:
+                    nxt = torch.argmax(logits, dim=-1).to(torch.int32)
+                hit = (nxt[:, None] == c.stops).any(dim=-1) & active
+                tok = torch.where(active, nxt, tok)
+                pos = torch.where(active, pos + 1, pos)
+                rem = torch.where(active, torch.where(hit, 0, rem - 1), rem)
+                taken = taken + active.to(torch.int32)
+                out.append(nxt)
+        return (torch.stack(out),
+                c._replace(tok=tok, pos=pos, rem=rem, taken=taken,
+                           keys=keys),
+                state)
+
+    return run
+
+
+class ModelAPI(NamedTuple):
+    cfg: ModelConfig
+    init: Callable            # init(seed=0, device=None) -> params
+    loss_fn: Callable         # training waits for a later slice (None)
+    prefill: Callable
+    decode_step: Callable
+    init_cache: Callable      # init_cache(batch, max_len, device=None)
+    prepare: Callable = None
+    prefill_chunk: Callable = None
+
+
+def build(cfg: ModelConfig) -> ModelAPI:
+    if cfg.family != "lm":
+        raise NotImplementedError(
+            f"family {cfg.family!r} waits for a later slice of the port")
+    return ModelAPI(
+        cfg,
+        lambda seed=0, device=None: lm.init(cfg, seed, device),
+        None,
+        lambda p, batch, caches: lm.prefill(p, cfg, batch["tokens"], caches),
+        lambda p, batch, caches: lm.decode_step(p, cfg, batch["token"],
+                                                batch["pos"], caches),
+        lambda bsz, max_len, device=None: lm.init_cache(cfg, bsz, max_len,
+                                                        device),
+        _prepare_fn(cfg),
+        lambda p, batch, caches: lm.prefill_chunk(
+            p, cfg, batch["tokens"], batch["offsets"], batch["lengths"],
+            caches),
+    )
+
+
+def init_params(cfg: ModelConfig, seed: int = 0, device=None):
+    """Seeded random parameters for ``cfg`` on ``device`` (CUDA by
+    default; raises without CUDA unless ``device="cpu"``)."""
+    return build(cfg).init(seed, device)
+
+
+def calibration_batch(cfg: ModelConfig, batch: int, seq_len: int,
+                      seed: int = 0) -> np.ndarray:
+    """(batch, seq_len) int32 random tokens from a numpy seed — the
+    port's counterpart of ``materialize_batch`` for prefill calibration
+    (the reference draws with jax.random, which torch cannot repeat)."""
+    rng = np.random.default_rng(seed)
+    return rng.integers(0, min(cfg.vocab, 1000), (batch, seq_len),
+                        dtype=np.int32)

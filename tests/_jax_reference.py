@@ -1,0 +1,207 @@
+"""The JAX reference's outputs for the torch parity tests.
+
+Run as ``python tests/_jax_reference.py <task> <out.pkl>`` by
+``_torch_parity.reference``, in a subprocess whose ``XLA_FLAGS`` carry
+``--xla_allow_excess_precision=false``. XLA's default lets a fused
+computation skip the bf16 roundings the reference's code asks for
+(``astype(bfloat16)`` inside a scanned block keeps f32 precision); with
+the flag off both packages round exactly where the source says, and
+their logits agree to float32 rounding. The flag is process-wide and is
+read once, when JAX starts its backend, so it cannot be set inside the
+test process without changing every other JAX test there.
+
+Each task returns plain dicts of numpy arrays and Python values; the
+caller reads them back with pickle (a file this script just wrote).
+"""
+import dataclasses
+import os
+import pickle
+import sys
+
+import numpy as np
+
+ARCH = "qwen2-0.5b"
+LM_POLICIES = ("bf16", "int8_serving", "int4_serving", "fidelity_int8")
+
+
+def _np_tree(tree):
+    import jax
+    return jax.tree.map(np.asarray, tree)
+
+
+def calib_prompts():
+    rng = np.random.default_rng(100)
+    return [rng.integers(0, 512, n).astype(np.int32) for n in (9, 14, 6)]
+
+
+def lm_inputs():
+    rng = np.random.default_rng(0)
+    return {"prefill_tokens": rng.integers(0, 512, (2, 12)).astype(np.int32),
+            "chunk_tokens": rng.integers(0, 512, (3, 5)).astype(np.int32),
+            "chunk_offsets": np.array([0, 3, 7], np.int32),
+            "chunk_lengths": np.array([5, 2, 0], np.int32)}
+
+
+def task_lm():
+    """Per policy and executor variant: prefill logits and caches, then a
+    chunked prefill into a live cache and three greedy decode steps."""
+    import jax
+    import jax.numpy as jnp
+
+    from repro.configs import reduced
+    from repro.core.policy import get_policy
+    from repro.layers.mplinear import executor_variant
+    from repro.models import registry
+    from repro.quant.calibrate import calibrate_act_scales
+
+    os.environ["REPRO_FUSED_BACKEND"] = "xla"
+    base = reduced(ARCH)
+    params = registry.build(base).init(jax.random.PRNGKey(0))
+    inp = lm_inputs()
+    out = {"params": _np_tree(params), "cases": {}, "eager_scales": {}}
+    for pol in LM_POLICIES:
+        cfg = dataclasses.replace(base, precision_policy=pol)
+        api = registry.build(cfg)
+        scales = None
+        if pol != "bf16":
+            scales = calibrate_act_scales(cfg, api, params,
+                                          prompts=calib_prompts())
+        if get_policy(pol).default.exact:
+            # the same calibration op by op: XLA's fusion of the
+            # dynamic per-row act quantize can flip a rounding that
+            # the op-by-op program (and the port) does not
+            with jax.disable_jit():
+                out["eager_scales"][pol] = calibrate_act_scales(
+                    cfg, api, params, prompts=calib_prompts())
+        prepared = api.prepare(params, get_policy(pol), act_scales=scales)
+        for variant in (None, "fused"):
+            with executor_variant(variant):
+                logits, caches = api.prefill(
+                    prepared, {"tokens": jnp.asarray(inp["prefill_tokens"])},
+                    api.init_cache(2, 16))
+                c2 = api.init_cache(3, 8)
+                c2 = api.prefill_chunk(
+                    prepared, {"tokens": jnp.asarray(inp["chunk_tokens"]),
+                               "offsets": jnp.asarray(inp["chunk_offsets"]),
+                               "lengths": jnp.asarray(inp["chunk_lengths"])},
+                    c2)
+                chunk_caches = _np_tree(c2)
+                tok = jnp.asarray(inp["chunk_tokens"][:, :1])
+                pos = jnp.asarray(inp["chunk_offsets"]
+                                  + inp["chunk_lengths"])
+                steps = []
+                for _ in range(3):
+                    lg, c2 = api.decode_step(prepared,
+                                             {"token": tok, "pos": pos}, c2)
+                    steps.append(np.asarray(lg))
+                    tok = jnp.argmax(lg, -1).astype(jnp.int32)[:, None]
+                    pos = pos + 1
+            out["cases"][(pol, variant)] = {
+                "scales": scales, "prefill_logits": np.asarray(logits),
+                "prefill_caches": _np_tree(caches),
+                "chunk_caches": chunk_caches, "decode_logits": steps,
+                "decode_caches": _np_tree(c2)}
+    return out
+
+
+# rid -> (prompt_len, budget, submit_tick): a multi-wave long prompt,
+# staggered arrivals that land mid-decode, one oversized request
+TRACE = {0: (18, 7, 0), 1: (5, 10, 0), 2: (7, 11, 2), 3: (4, 6, 3),
+         4: (10, 60, 5)}
+
+
+def trace_prompts():
+    rng = np.random.default_rng(1)
+    return {rid: rng.integers(0, 512, n).astype(np.int32)
+            for rid, (n, _, _) in sorted(TRACE.items())}
+
+
+def drive_trace(make_engine, make_request, stops):
+    """Submit each trace request at its tick and step until drained;
+    returns (engine, {rid: tokens})."""
+    prompts = trace_prompts()
+    eng = make_engine()
+    pending = {rid: t for rid, (_, _, t) in TRACE.items()}
+    tick = 0
+    while pending or eng.has_pending():
+        for rid in [r for r, t in pending.items() if t <= tick]:
+            del pending[rid]
+            eng.submit(make_request(rid, prompts[rid], TRACE[rid][1],
+                                    stops.get(rid, ())))
+        eng.step()
+        tick += 1
+        if tick > 10_000:
+            raise RuntimeError("trace did not drain")
+    return eng, {r.rid: list(r.tokens) for r in eng.completed.values()}
+
+
+ENGINE_CASES = {
+    # name: (policy, EngineConfig overrides)
+    "int8_b1": ("int8_serving", dict(decode_block=1)),
+    "int8_b2": ("int8_serving", dict(decode_block=2)),
+    "int8_b3": ("int8_serving", dict(decode_block=3)),
+    "int8_b8": ("int8_serving", dict(decode_block=8)),
+    "fid_on": ("fidelity_int8", dict(decode_block=4, fused_executors="on")),
+    "fid_off": ("fidelity_int8", dict(decode_block=4,
+                                      fused_executors="off")),
+    "int4_off_b4": ("int4_serving", dict(decode_block=4,
+                                         fused_executors="off")),
+}
+# stop ids taken from the greedy streams, so that EOS stopping fires
+# mid-stream (and mid-block) under every policy the cases serve
+STOPS = {1: (240, 222), 3: (424,)}
+
+
+def task_serving():
+    """The bursty trace through the reference engine under each case,
+    with the counters the parity tests compare."""
+    import jax
+
+    from repro.configs import reduced
+    from repro.models import registry
+    from repro.quant.calibrate import calibrate_act_scales
+    from repro.serving import EngineConfig, Request, SamplingParams
+    from repro.serving.engine import ServingEngine
+
+    os.environ["REPRO_FUSED_BACKEND"] = "xla"
+    base = reduced(ARCH)
+    params = registry.build(base).init(jax.random.PRNGKey(0))
+    out = {"params": _np_tree(params), "scales": {}, "cases": {}}
+    for name, (pol, kw) in ENGINE_CASES.items():
+        cfg = dataclasses.replace(base, precision_policy=pol)
+        api = registry.build(cfg)
+        if pol not in out["scales"]:
+            out["scales"][pol] = calibrate_act_scales(
+                cfg, api, params, prompts=calib_prompts())
+        config = EngineConfig(batch_slots=2, cache_len=64, prefill_chunk=4,
+                              act_calibration=out["scales"][pol], **kw)
+
+        def make_request(rid, prompt, budget, stops):
+            return Request(rid=rid, prompt=prompt, max_new_tokens=budget,
+                           sampling=SamplingParams(stop_ids=stops))
+
+        eng, streams = drive_trace(
+            lambda: ServingEngine(cfg, api, params, config=config),
+            make_request, STOPS)
+        out["cases"][name] = {
+            "streams": streams,
+            "counters": dict(eng.counters),
+            "truncated": {r.rid: r.truncated
+                          for r in eng.completed.values()},
+            "finish": {r.rid: r.finish_reason
+                       for r in eng.completed.values()},
+            "weight_quant": eng.weight_quant_trace_count(),
+            "act_quant": eng.act_quant_trace_count(),
+            "staged": eng.staged_trace_count(),
+            "fused": eng.fused}
+    return out
+
+
+TASKS = {"lm": task_lm, "serving": task_serving}
+
+
+if __name__ == "__main__":
+    task, path = sys.argv[1], sys.argv[2]
+    result = TASKS[task]()
+    with open(path, "wb") as f:
+        pickle.dump(result, f)

@@ -1,0 +1,151 @@
+"""The port's CUDA kernels on the card (``cuda`` marker).
+
+Run on a machine with a CUDA device and ``nvcc``:
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
+
+This file imports no JAX, so it runs where the JAX package is not
+installed. Every test skips without a CUDA device (decided inside the
+fixture, never at import). Tolerances: the exact kernels are
+``torch.equal`` to their plain versions; ``fused_dequant_mm`` agrees
+with its plain version within 2 gamma_K (|x| @ |w|) elementwise, the
+most two f32 summation orders of the same products can differ by
+(gamma_K = K u / (1 - K u), u = 2^-24).
+"""
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.configs import reduced
+from repro_torch.kernels import fused as tfused
+from repro_torch.kernels import ops as tops
+from repro_torch.kernels import ref as tref
+from repro_torch.models import registry
+from repro_torch.quant.quantize import (FP4_E2M1, FP8_E4M3, fp_quantize,
+                                        quantize_symmetric)
+
+INT_KINDS = ["int8", "int4", "int4_packed"]
+U = 2.0 ** -24
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def _stored(gen, k, n, kind, groups, device):
+    w = torch.randn((k, n), generator=gen, device=device) / k ** 0.5
+    wg = w.reshape(groups, k // groups, n)
+    if kind in ("fp8", "fp4", "fp4_packed"):
+        q, s = fp_quantize(wg, FP8_E4M3 if kind == "fp8" else FP4_E2M1,
+                           axis=-2)
+    else:
+        q, s = quantize_symmetric(wg, 8 if kind == "int8" else 4, axis=-2)
+    q = q.reshape(k, n)
+    if kind == "int4_packed":
+        q = tops.pack_int4(q)
+    elif kind == "fp4_packed":
+        q = tops.pack_u4(q)
+    return q.contiguous(), s.reshape(groups, n).contiguous()
+
+
+def _sum_bound(x, w, sw, sa, kind, act):
+    xp = x
+    if act != "none":
+        xp = tref.quantize_act_ref(x, sa)
+        if act == "qdq":
+            xp = xp * sa
+    wf = tref.decode_weight_ref(w, kind)
+    k, n = wf.shape
+    g = sw.shape[0]
+    wf = (wf.reshape(g, k // g, n) * sw[:, None, :]).reshape(k, n)
+    absdot = xp.abs().double() @ wf.abs().double()
+    if act == "quant":
+        absdot = absdot * sa.double()
+    return 2 * (k * U / (1 - k * U)) * absdot
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("groups", [1, 4])
+@pytest.mark.parametrize("kind", tfused.KINDS)
+def test_fused_dequant_matches_plain(cuda, kind, groups):
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(31)
+    for m, k, n in ((5, 128, 72), (8, 896, 130), (33, 256, 40)):
+        w, sw = _stored(gen, k, n, kind, groups, cuda)
+        x = torch.randn((m, k), generator=gen, device=cuda) * 2
+        sa = (x.abs().amax() / 127).reshape(())
+        for act in tfused.ACTS:
+            got = tops.fused_dequant_matmul(x, w, sw, sa, kind=kind, act=act)
+            want = tops.fused_dequant_matmul(x, w, sw, sa, kind=kind,
+                                             act=act, backend="ref")
+            diff = (got.double() - want.double()).abs()
+            assert bool((diff <= _sum_bound(x, w, sw, sa, kind,
+                                            act)).all()), (kind, act, m)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", INT_KINDS)
+def test_exact_kernels_equal_plain(cuda, kind):
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(32)
+    for m, k, n in ((9, 192, 130), (1, 64, 7), (256, 896, 128)):
+        w, sw = _stored(gen, k, n, kind, 1, cuda)
+        x = torch.randn((m, k), generator=gen, device=cuda) * 2
+        sa = torch.tensor(0.11, device=cuda)
+        assert torch.equal(
+            tops.fused_quantized_matmul(x, w, sw, sa, kind=kind),
+            tops.fused_quantized_matmul(x, w, sw, sa, kind=kind,
+                                        backend="ref"))
+        a = tref.quantize_act_ref(x, sa).to(torch.int8)
+        fn = tops.int4_matmul_packed if kind == "int4_packed" \
+            else tops.int8_matmul
+        assert torch.equal(fn(a, w), fn(a, w, backend="ref"))
+
+
+@pytest.mark.cuda
+def test_wrappers_count_launches_and_reject_mixed_devices(cuda):
+    a = torch.ones((4, 16), dtype=torch.int8, device=cuda)
+    b = torch.ones((16, 8), dtype=torch.int8, device=cuda)
+    before = tops.launch_counts()["qmm"]
+    assert int(tops.int8_matmul(a, b)[0, 0]) == 16
+    assert tops.launch_counts()["qmm"] == before + 1
+    tops.int8_matmul(a, b, backend="ref")
+    assert tops.launch_counts()["qmm"] == before + 1
+    with pytest.raises(ValueError):
+        tops.int8_matmul(a, b.cpu())
+
+
+@pytest.mark.cuda
+def test_engine_fused_on_off_identical_on_the_card(cuda):
+    """Reduced qwen2-0.5b under fidelity_int8 on the card: the fused
+    (``fused_qmm``) and unfused (``qmm``) routes give the same greedy
+    streams, and each route launched its kernels."""
+    from repro_torch.serving import EngineConfig, Request
+    from repro_torch.serving.engine import ServingEngine
+    cfg = dataclasses.replace(reduced("qwen2-0.5b"),
+                              precision_policy="fidelity_int8")
+    api = registry.build(cfg)
+    params = api.init(0, cuda)
+    scales, streams = "auto", {}
+    for mode in ("on", "off"):
+        tops.reset_launch_counts()
+        eng = ServingEngine(cfg, api, params, EngineConfig(
+            batch_slots=3, cache_len=64, decode_block=4,
+            act_calibration=scales, fused_executors=mode))
+        scales = eng.act_scales
+        rng = np.random.default_rng(0)
+        reqs = [Request(rid=i, prompt=rng.integers(
+                    0, cfg.vocab, int(rng.integers(3, 12)), dtype=np.int32),
+                    max_new_tokens=6) for i in range(5)]
+        for r in reqs:
+            eng.submit(r)
+        eng.run_until_drained()
+        streams[mode] = [r.tokens for r in reqs]
+        counts = tops.launch_counts()
+        assert counts["fused_qmm" if mode == "on" else "qmm"] > 0, counts
+    assert streams["on"] == streams["off"]

@@ -1,0 +1,136 @@
+"""The port stands alone: no JAX, nothing of ``repro``, no quiet CPU
+fallback, and no compiler needed to import it.
+
+* No module under ``src/repro_torch/`` imports ``jax``/``jaxlib`` or any
+  module of ``repro`` — checked on every module's syntax tree, and by
+  importing the whole package in a fresh interpreter and reading
+  ``sys.modules``. Importing it loads no kernel either.
+* Entry points default to CUDA: without a CUDA device and without an
+  explicit ``device="cpu"`` they raise.
+* Without ``nvcc`` the kernel loader raises a clear error; it never
+  hands back a plain version.
+"""
+import ast
+import pathlib
+import subprocess
+import sys
+
+import pytest
+import torch
+
+from repro_torch import device as tdevice
+from repro_torch.configs import reduced
+from repro_torch.kernels import _build
+from repro_torch.kernels import ops as tops
+from repro_torch.models import registry
+from repro_torch.quant.calibrate import calibrate_act_scales
+from repro_torch.serving.engine import ServingEngine
+
+PKG = pathlib.Path(__file__).resolve().parents[1] / "src" / "repro_torch"
+
+
+def _forbidden(name: str) -> bool:
+    top = name.split(".")[0]
+    return top in ("jax", "jaxlib", "repro")
+
+
+def _imports(path: pathlib.Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+
+
+def test_no_module_imports_jax_or_the_reference():
+    files = sorted(PKG.rglob("*.py"))
+    assert len(files) > 20
+    bad = [(str(f.relative_to(PKG)), name) for f in files
+           for name in _imports(f) if _forbidden(name)]
+    assert bad == []
+
+
+def test_importing_the_package_loads_no_jax_no_reference_no_kernel():
+    code = (
+        "import pkgutil, sys, repro_torch\n"
+        "for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.'):\n"
+        "    __import__(m.name)\n"
+        "bad = sorted(n for n in sys.modules\n"
+        "             if n.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+        "assert not bad, bad\n"
+        "import repro_torch.kernels._build as b\n"
+        "assert not b._LIBS, b._LIBS\n"
+        "print(len([n for n in sys.modules if n.startswith('repro_torch')]))\n")
+    env = {"PYTHONPATH": str(PKG.parent), "PATH": "/usr/bin:/bin",
+           "JAX_PLATFORMS": "cpu"}
+    res = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert int(res.stdout.strip()) > 20
+
+
+@pytest.fixture
+def no_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_entry_points_raise_without_cuda_unless_asked_for_cpu(no_cuda):
+    cfg = reduced("qwen2-0.5b")
+    api = registry.build(cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        registry.init_params(cfg)
+    params = registry.init_params(cfg, device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ServingEngine(cfg, api, params)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        calibrate_act_scales(cfg, api, params, prompts=[[1, 2, 3]])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        tdevice.resolve_device("cuda")
+    eng = ServingEngine(cfg, api, params, device="cpu")
+    assert eng.device == torch.device("cpu")
+
+
+def test_loader_raises_without_nvcc(monkeypatch, tmp_path):
+    monkeypatch.delenv("CUDA_HOME", raising=False)
+    monkeypatch.delenv("CUDA_PATH", raising=False)
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setattr(_build, "DEFAULT_NVCC", str(tmp_path / "nvcc"))
+    monkeypatch.setattr(_build, "build_dir", lambda: tmp_path / "build")
+    monkeypatch.setattr(_build, "_LIBS", {})
+    for name in _build.SOURCES:
+        with pytest.raises(RuntimeError, match="nvcc not found"):
+            _build.library(name)
+    assert not (tmp_path / "build").exists()
+
+
+def test_cpu_tensors_never_reach_the_loader(monkeypatch):
+    def refuse(name):
+        raise AssertionError(f"loader called for {name} on CPU tensors")
+    monkeypatch.setattr(_build, "library", refuse)
+    before = tops.launch_counts()
+    a = torch.ones((3, 8), dtype=torch.int8)
+    b = torch.ones((8, 5), dtype=torch.int8)
+    assert int(tops.int8_matmul(a, b)[0, 0]) == 8
+    # bytes 0x11 hold two nibbles of +1 each
+    assert int(tops.int4_matmul_packed(a, tops.pack_int4(b))[0, 0]) == 8
+    x = torch.ones((3, 8))
+    sw = torch.ones((1, 5))
+    y = tops.fused_quantized_matmul(x, b, sw, torch.tensor(0.5))
+    assert float(y[0, 0]) == 8.0          # round(1 / 0.5) * 8 * 0.5
+    y = tops.fused_dequant_matmul(x, b, sw, torch.tensor(0.5), act="qdq")
+    assert float(y[0, 0]) == 8.0
+    assert tops.launch_counts() == before
+
+
+def test_build_flags_are_exact():
+    """The exact kernels need IEEE division and rounding: never fast
+    math, and always the sm_90a target."""
+    flags = " ".join(_build.NVCC_FLAGS)
+    assert "fast_math" not in flags and "fast-math" not in flags
+    assert "arch=compute_90a,code=sm_90a" in flags
+    for src in _build.SOURCES:
+        text = (_build.CSRC / f"{src}.cu").read_text()
+        assert "extern \"C\"" in text
+        assert "torch/extension.h" not in text

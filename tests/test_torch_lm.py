@@ -1,0 +1,166 @@
+"""The port's lm model against the JAX reference on ``reduced("qwen2-0.5b")``.
+
+Both packages run the same converted weights, the same calibrated act
+scales and the same numpy tokens. The reference's outputs come from
+``tests/_jax_reference.py lm`` (see there for the XLA flag it needs).
+For each policy and executor variant: prefill logits and caches, a
+chunked prefill into a live cache, and three greedy decode steps fed
+the reference's own argmax tokens.
+
+Tolerances:
+
+* logits (f32, |logit| < 4): 1e-5 absolute. Both packages round to bf16
+  at the same places and differ only in the order of f32 sums inside a
+  matrix product, a few f32 ulps (2.4e-7 at this magnitude); 1e-5 is
+  about 40 of them.
+* cache contents: K and V (bf16) within one bf16 ulp (at most 2^-7
+  relative) of the reference, since a last-bit difference of an f32 sum
+  can flip the bf16 rounding of one element; position tags equal.
+* calibrated act scales: bit-equal to the reference computed op by op
+  (``jax.disable_jit``). The reference's jitted calibration can differ by
+  one int8 rounding step under the dynamic per-row act quantize of
+  ``fidelity_int8`` (XLA fuses that quantize), so it is held to the
+  jitted scales only where no dynamic int quantize runs.
+"""
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.configs import reduced
+from repro_torch.convert import params_from_numpy, to_numpy
+from repro_torch.core.policy import get_policy
+from repro_torch.layers.mplinear import executor_variant
+from repro_torch.models import registry
+from repro_torch.quant.calibrate import calibrate_act_scales
+
+from _jax_reference import LM_POLICIES, calib_prompts, lm_inputs
+from _torch_parity import reference
+
+LOGIT_ATOL = 1e-5
+BF16_RTOL = 2.0 ** -7
+
+
+@pytest.fixture(scope="module")
+def ref():
+    out = reference("lm")
+    return out, params_from_numpy(out["params"], device="cpu")
+
+
+def _assert_caches(got, want, what):
+    for name, c in want.items():
+        k, v, pos = to_numpy(got[name])
+        np.testing.assert_array_equal(pos, np.asarray(c[2]),
+                                      err_msg=f"{what} {name} pos")
+        for a, b, field in ((k, c[0], "k"), (v, c[1], "v")):
+            np.testing.assert_allclose(a, np.asarray(b, np.float32),
+                                       rtol=BF16_RTOL, atol=0,
+                                       err_msg=f"{what} {name} {field}")
+
+
+def _run(api, prepared, variant):
+    inp = lm_inputs()
+    out = {}
+    with executor_variant(variant), torch.no_grad():
+        logits, caches = api.prefill(
+            prepared, {"tokens": torch.from_numpy(inp["prefill_tokens"])},
+            api.init_cache(2, 16, "cpu"))
+        out["prefill_logits"], out["prefill_caches"] = logits, caches
+        c2 = api.prefill_chunk(
+            prepared, {"tokens": torch.from_numpy(inp["chunk_tokens"]),
+                       "offsets": torch.from_numpy(inp["chunk_offsets"]),
+                       "lengths": torch.from_numpy(inp["chunk_lengths"])},
+            api.init_cache(3, 8, "cpu"))
+        out["chunk_caches"] = {k: to_numpy(c) for k, c in c2.items()}
+    return out, c2
+
+
+@pytest.mark.parametrize("variant", [None, "fused"])
+@pytest.mark.parametrize("policy", LM_POLICIES)
+def test_lm_matches_reference(ref, policy, variant):
+    out, params = ref
+    case = out["cases"][(policy, variant)]
+    cfg = dataclasses.replace(reduced("qwen2-0.5b"), precision_policy=policy)
+    api = registry.build(cfg)
+    prepared = api.prepare(params, get_policy(policy),
+                           act_scales=case["scales"])
+    got, c2 = _run(api, prepared, variant)
+    np.testing.assert_allclose(got["prefill_logits"].numpy(),
+                               case["prefill_logits"], rtol=0,
+                               atol=LOGIT_ATOL)
+    _assert_caches(got["prefill_caches"], case["prefill_caches"], "prefill")
+    _assert_caches(got["chunk_caches"], case["chunk_caches"], "chunk")
+
+    inp = lm_inputs()
+    tok = torch.from_numpy(inp["chunk_tokens"][:, :1].copy())
+    pos = torch.from_numpy(inp["chunk_offsets"] + inp["chunk_lengths"])
+    with executor_variant(variant), torch.no_grad():
+        for want in case["decode_logits"]:
+            logits, c2 = api.decode_step(prepared,
+                                         {"token": tok, "pos": pos}, c2)
+            np.testing.assert_allclose(logits.numpy(), want, rtol=0,
+                                       atol=LOGIT_ATOL)
+            tok = torch.from_numpy(
+                np.argmax(want, -1).astype(np.int32)[:, None])
+            pos = pos + 1
+    _assert_caches(c2, case["decode_caches"], "decode")
+
+
+@pytest.mark.parametrize("policy", [p for p in LM_POLICIES if p != "bf16"])
+def test_calibrated_scales_match_reference(ref, policy):
+    out, params = ref
+    cfg = dataclasses.replace(reduced("qwen2-0.5b"), precision_policy=policy)
+    got = calibrate_act_scales(cfg, registry.build(cfg), params,
+                               prompts=calib_prompts(), device="cpu")
+    if get_policy(policy).default.exact:
+        assert got == out["eager_scales"][policy]
+    else:
+        assert got == out["cases"][(policy, None)]["scales"]
+
+
+def test_fused_and_unfused_exact_int_agree(ref):
+    """Under an exact int policy the fused executor (``fused_qmm``) and
+    the unfused one (``qmm`` + epilogue) give bit-equal logits."""
+    out, params = ref
+    cfg = dataclasses.replace(reduced("qwen2-0.5b"),
+                              precision_policy="fidelity_int8")
+    api = registry.build(cfg)
+    prepared = api.prepare(params, get_policy("fidelity_int8"),
+                           act_scales=out["cases"][("fidelity_int8",
+                                                    None)]["scales"])
+    a, _ = _run(api, prepared, None)
+    b, _ = _run(api, prepared, "fused")
+    assert torch.equal(a["prefill_logits"], b["prefill_logits"])
+
+
+def test_init_defaults_to_cuda_and_keeps_the_reference_tree(ref):
+    out, _ = ref
+    cfg = reduced("qwen2-0.5b")
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            registry.init_params(cfg)
+    params = registry.init_params(cfg, seed=3, device="cpu")
+    flat_t = _flatten(to_numpy(params))
+    flat_j = _flatten(out["params"])
+    assert flat_t.keys() == flat_j.keys()
+    for k, v in flat_j.items():
+        assert flat_t[k].shape == np.asarray(v).shape, k
+        assert flat_t[k].dtype == np.asarray(v).dtype, k
+    # the reference's distribution (truncated at 3 sigma of
+    # 1/sqrt(d_in)), not its bits: spreads within 3% of each other
+    for k in ("blocks/b0/attn/wq/w", "blocks/b0/mlp/w_down/w", "embed/w"):
+        d_in = cfg.d_model if k != "blocks/b0/mlp/w_down/w" else cfg.d_ff
+        assert np.abs(flat_t[k]).max() <= 3.0 / np.sqrt(d_in) + 1e-6, k
+        assert abs(flat_t[k].std() / flat_j[k].std() - 1) < 0.03, k
+
+
+def _flatten(tree, prefix=""):
+    out = {}
+    for k, v in tree.items():
+        p = f"{prefix}/{k}" if prefix else k
+        if isinstance(v, dict):
+            out.update(_flatten(v, p))
+        else:
+            out[p] = np.asarray(v)
+    return out
