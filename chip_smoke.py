@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--report PATH] [--profile]
 
-Drives the port (``src/repro_torch``) on the card, in five phases, each
+Drives the port (``src/repro_torch``) on the card, in six phases, each
 printing one line that starts with ``phase``:
 
 1. device and build: the card's name and power limit (nvidia-smi), and
@@ -12,11 +12,14 @@ printing one line that starts with ``phase``:
    serving path's shapes (M in {8, 256} rows against each projection
    shape of qwen2-0.5b, a ragged shape, a per-group case):
    ``fused_dequant_mm`` within 2 gamma_K (|x| @ |w|) elementwise (see
-   ``csrc/fused_dequant.cu``), the three exact kernels ``torch.equal``;
-   then each kernel's time over one decode step's projections (24
-   layers x 7 projections at M = 8) beside its plain version's, the
-   card's least time for the same bytes and operations, and
-   ``torch._int_mm`` where it takes the inputs;
+   ``csrc/fused_dequant.cu``), the three exact kernels ``torch.equal``,
+   ``mp_matmul`` bit-equal in three IPU configs, both modes and both
+   roundings, on "wide" f16 operands with zeros, subnormals and an
+   all-zero K-group; then each kernel's time over one decode step's
+   projections (24 layers x 7 projections at M = 8) beside its plain
+   version's (for ``mp_matmul``: one layer's seven projections), the
+   card's least time for the same bytes and operations, and a library
+   call where one computes the same function;
 3. full-width qwen2-0.5b (24 layers, d_model 896, vocab 151936, random
    weights from a seed) served by the port's ``ServingEngine`` under
    ``int4_serving`` with calibrated act scales and the fused executors:
@@ -26,7 +29,12 @@ printing one line that starts with ``phase``:
    ``fidelity_int8`` and an exact int4 policy, identical greedy streams;
 5. one chunked prefill and one decode step at full width under
    ``int8_serving`` on the card (kernels) and on the CPU (plain
-   versions), logits and caches compared.
+   versions), logits and caches compared;
+6. full-width qwen2-0.5b served under ``fidelity_fp16_ipu``: every
+   projection through ``mp_matmul`` (the paper's bit-exact IPU(w)
+   emulation), 8 requests at decode_block 1 and 4, identical greedy
+   streams, no other kernel launched, and the largest |x| that entered
+   ``mp_matmul``.
 
 Any failure raises and exits non-zero. The line before the last is
 ``{"kernels": [...]}`` (the kernel table), the last line
@@ -50,13 +58,19 @@ import torch
 HERE = os.path.dirname(os.path.abspath(__file__))
 
 # published dense peaks (NVIDIA data sheets): memory bytes/s, f32 FMA
-# outside the tensor cores FLOP/s, int8 tensor-core OP/s
+# outside the tensor cores FLOP/s, int8 tensor-core OP/s, SMs (the int32
+# CUDA-core peak is SMs x 64 lanes x the SM clock nvidia-smi reports)
 CARDS = {
-    "H100 PCIe": {"bytes_per_s": 2.0e12, "f32": 51e12, "int8": 1513e12},
-    "H100 NVL": {"bytes_per_s": 3.9e12, "f32": 60e12, "int8": 1671e12},
-    "H100": {"bytes_per_s": 3.35e12, "f32": 67e12, "int8": 1979e12},
-    "H200": {"bytes_per_s": 4.8e12, "f32": 67e12, "int8": 1979e12},
+    "H100 PCIe": {"bytes_per_s": 2.0e12, "f32": 51e12, "int8": 1513e12,
+                  "sms": 114},
+    "H100 NVL": {"bytes_per_s": 3.9e12, "f32": 60e12, "int8": 1671e12,
+                 "sms": 132},
+    "H100": {"bytes_per_s": 3.35e12, "f32": 67e12, "int8": 1979e12,
+             "sms": 132},
+    "H200": {"bytes_per_s": 4.8e12, "f32": 67e12, "int8": 1979e12,
+             "sms": 132},
 }
+INT32_LANES_PER_SM = 64
 U32 = 2.0 ** -24
 # card vs CPU at full width (phase 5). The two differ in the order of
 # every f32 sum, so a bf16 rounding can flip (2^-8 of the value), and so
@@ -118,14 +132,20 @@ def median_ms(fn, reps=10, warm=2):
 
 # ------------------------------------------------------------- phase 1
 
+def _smi(query):
+    return subprocess.run(
+        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+        timeout=60).stdout.strip().splitlines()[0]
+
+
 def phase_build():
     from repro_torch.kernels import _build
     name = torch.cuda.get_device_name(0)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip().splitlines()[0]
+    smi = _smi("name,power.limit")
     print(smi, flush=True)
+    # the SM clock the int32 peak is computed from
+    REPORT["clocks_max_sm"] = _smi("clocks.max.sm")
     t0 = time.perf_counter()
     reports = _build.build_all()
     for src in _build.SOURCES:
@@ -350,11 +370,147 @@ def _int_mm_ms(s):
     return median_ms(lambda: s.run(lambda k, w, sw: torch._int_mm(s.a[k], w)))
 
 
+# ------------------------------------------------- phase 2: mp_matmul
+
+def _wide_f16(gen, shape):
+    """The 'wide' operands of tests/test_kernels.py: normal values times
+    2^[-10, 12), as f16, on the card."""
+    x = torch.randn(shape, generator=gen, device="cuda")
+    e = torch.randint(-10, 12, shape, generator=gen, device="cuda")
+    return torch.ldexp(x, e).to(torch.float16).nan_to_num(0, 0, 0)
+
+
+def _mp_operands(gen, m, k, n):
+    """Wide operands with a zero row, -0s, a row of subnormals, a column
+    with an all-zero first K-group and a row with an all-zero group."""
+    a, b = _wide_f16(gen, (m, k)), _wide_f16(gen, (k, n))
+    a[0] = 0
+    a[1 % m, ::3] = -0.0
+    sub = torch.randint(-1023, 1024, (k,), generator=gen, device="cuda")
+    a[2 % m] = (sub * 2.0 ** -24).to(torch.float16)
+    b[:16, 1 % n] = 0
+    a[3 % m, 16:32] = 0
+    return a.contiguous(), b.contiguous()
+
+
+def _as_bits(y):
+    return y.view(torch.int16 if y.element_size() == 2 else torch.int32)
+
+
+def _check_mpmm(gen, cfg):
+    """``mp_matmul`` against its plain version (``backend="ref"``), bit
+    for bit: the fidelity config ``cfg`` at M in {8, 256} x the seven
+    projection shapes and a ragged shape; the other two test configs of
+    tests/test_kernels.py (f16 output included); the fused mode once per
+    config; floor rounding once."""
+    from repro_torch.core.ipu import IPUConfig
+    from repro_torch.kernels import ops
+    other = [IPUConfig(n=16, w=28, accum="fp32"),
+             IPUConfig(n=8, w=12, accum="fp16")]
+    cases = [(cfg, False, (m, k, n)) for m in (8, 256) for _, k, n in LAYER]
+    cases += [(cfg, False, (5, 200, 72))]
+    cases += [(c, False, (8, 896, 896)) for c in other]
+    cases += [(c, True, (8, 896, 128)) for c in [cfg] + other]
+    cases += [(dataclasses.replace(cfg, rounding="floor"), False,
+               (8, 896, 128))]
+    for c, fused, (m, k, n) in cases:
+        a, b = _mp_operands(gen, m, k, n)
+        got = ops.mp_matmul(a, b, c, fused=fused)
+        want = ops.mp_matmul(a, b, c, fused=fused, backend="ref")
+        if got.dtype != want.dtype or not torch.equal(_as_bits(got),
+                                                      _as_bits(want)):
+            raise AssertionError(
+                f"mp_matmul n={c.n} w={c.w} {c.accum} {c.rounding} "
+                f"fused={fused} at {(m, k, n)}: not bit-equal to its "
+                f"plain version")
+    torch.cuda.synchronize()
+    return len(cases)
+
+
+def _active_products(x16, w16, cfg):
+    """Products of x16 @ w16 that the EHU keeps (alignment shift within
+    cfg.mask_threshold of the group's largest product exponent): the
+    data-dependent part of the kernel's work, counted on the card."""
+    from repro_torch.core import fp16 as fpmod
+    _, ea, _ = fpmod.decompose(x16, fpmod.FP16)
+    _, eb, _ = fpmod.decompose(w16, fpmod.FP16)
+    m, k = ea.shape
+    g = cfg.n
+    ea = ea.reshape(m, k // g, g)
+    eb = eb.reshape(k // g, g, -1)
+    c = ea[:, :, :, None] + eb[None]                # (m, G, g, n)
+    shift = c.amax(dim=2, keepdim=True) - c
+    return int((shift <= cfg.mask_threshold).sum())
+
+
+def _time_mpmm(gen, rates, cfg):
+    """``mp_matmul`` over one decode step's 168 projections at M = 8 (f16
+    weights, each layer its own), its plain version over one layer's
+    seven projections, the bound, and the exact=False route's f32 matmul
+    on the same f16 operands (context: the price of bit-exact emulation,
+    not a yardstick)."""
+    from repro_torch.kernels import ops
+    from repro_torch.layers.mplinear import _dot_f32
+    m = 8
+    layers = [[(torch.randn((k, n), generator=gen, device="cuda")
+                / k ** 0.5).to(torch.float16) for _, k, n in LAYER]
+              for _ in range(N_LAYERS)]
+    x = {k: (torch.randn((m, k), generator=gen, device="cuda") * 2
+             ).to(torch.float16) for k in (896, 4864)}
+
+    def sweep(call, depth=N_LAYERS):
+        for layer in layers[:depth]:
+            for (_, k, _), w in zip(LAYER, layer):
+                call(x[k], w)
+
+    ms = median_ms(lambda: sweep(lambda a, w: ops.mp_matmul(a, w, cfg)))
+    layer_ms = median_ms(lambda: sweep(
+        lambda a, w: ops.mp_matmul(a, w, cfg), depth=1))
+    plain_layer_ms = median_ms(lambda: sweep(
+        lambda a, w: ops.mp_matmul(a, w, cfg, backend="ref"), depth=1),
+        reps=3, warm=1)
+    dense_ms = median_ms(lambda: sweep(
+        lambda a, w: _dot_f32(a, w, torch.float16)))
+    # bound: f16 weights and activations read once, f32 outputs written
+    # once; operations: per product the EHU's add, max, subtract and
+    # compare (4), and per product it keeps 9 plane products of a
+    # multiply, a shift and an add (27), on the int32 CUDA cores
+    nbytes = products = active = 0
+    for layer in layers:
+        for (_, k, n), w in zip(LAYER, layer):
+            nbytes += w.numel() * 2 + m * k * 2 + m * n * 4
+            products += m * k * n
+            active += _active_products(x[k], w, cfg)
+    nops = 4 * products + 27 * active
+    t_bytes = nbytes / rates["bytes_per_s"] * 1e3
+    t_ops = nops / rates["int32"] * 1e3
+    return {"ms": ms, "plain_ms": plain_layer_ms,
+            "plain_scope": "one layer (7 projections), 3 reps",
+            "ms_one_layer": layer_ms,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": None, "bytes": nbytes, "operations": nops,
+            "products": products, "active_products": active,
+            "int32_ops_per_s": rates["int32"],
+            "exact_false_f32_matmul_ms": dense_ms,
+            "calls": N_LAYERS * len(LAYER), "rows": m}
+
+
 def phase_kernels(rates):
+    from repro_torch.core.policy import get_policy
     gen = torch.Generator(device="cuda")
     gen.manual_seed(1234)
+    fidelity = get_policy("fidelity_fp16_ipu").default.ipu
     err, n_cmp = _check_kernels(gen)
+    n_cmp += _check_mpmm(gen, fidelity)
+    err["mp_matmul"] = 0.0             # every comparison was bit-equal
     timing = _time_kernels(gen, rates)
+    timing["mp_matmul"] = _time_mpmm(gen, rates, fidelity)
+    print(f"mp_matmul context: the exact=False route (f32 matmul of the "
+          f"same f16 operands) takes "
+          f"{timing['mp_matmul']['exact_false_f32_matmul_ms']:.3f} ms over "
+          f"the decode step's projections, mp_matmul "
+          f"{timing['mp_matmul']['ms']:.3f} ms", flush=True)
     log(2, comparisons=n_cmp, max_abs_err=err, timing=timing)
     return err, timing
 
@@ -585,6 +741,67 @@ def phase_card_vs_cpu(params, cfg_full, scales):
             f"{rel_rms} (tolerance {CPU_LOGIT_REL_RMS})")
 
 
+# ------------------------------------------------------------- phase 6
+
+class _InputAbsMax:
+    """While open, keeps the largest |a| given to ``ops.mp_matmul`` (the
+    f16 activations, after the executor's cast), on the card without a
+    host sync: an overflow of the f16 cast shows as inf."""
+
+    def __enter__(self):
+        from repro_torch.kernels import ops
+        self.ops, self.orig, self.amax = ops, ops.mp_matmul, None
+
+        def probe(a, b, *args, **kwargs):
+            m = a.detach().abs().amax().float()
+            self.amax = m if self.amax is None else torch.maximum(self.amax,
+                                                                  m)
+            return self.orig(a, b, *args, **kwargs)
+        ops.mp_matmul = probe
+        return self
+
+    def __exit__(self, *exc):
+        self.ops.mp_matmul = self.orig
+
+
+def phase_fidelity(params, cfg_full):
+    """Full-width qwen2-0.5b under fidelity_fp16_ipu: every projection
+    through ``mp_matmul``, at decode_block 1 and 4."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import registry
+    from repro_torch.serving import EngineConfig
+    cfg = dataclasses.replace(cfg_full, precision_policy="fidelity_fp16_ipu")
+    api = registry.build(cfg)
+    results, streams = {}, {}
+    ops.reset_launch_counts()
+    with _InputAbsMax() as probe:
+        for blk in (1, 4):
+            eng, streams[blk], results[f"block{blk}"] = _serve(
+                cfg, api, params, EngineConfig(
+                    batch_slots=8, cache_len=256, prefill_chunk=32,
+                    decode_block=blk),
+                _requests(cfg, 8, 8, 32, 8, seed=12))
+    launches = ops.launch_counts()
+    amax = float(probe.amax)
+    routes = sorted(set(eng.routing_report().values()))
+    log(6, launches=launches, mp_matmul_input_absmax=amax, routes=routes,
+        fused=eng.fused, runs=results)
+    if launches["mp_matmul"] <= 0:
+        raise AssertionError(f"fidelity_fp16_ipu launched no mp_matmul: "
+                             f"{launches}")
+    others = {k: v for k, v in launches.items() if k != "mp_matmul" and v}
+    if others or routes != ["fp16_ipu"]:
+        raise AssertionError(f"every projection must route to fp16_ipu: "
+                             f"routes {routes}, other kernels {others}")
+    if streams[1] != streams[4]:
+        raise AssertionError("fidelity_fp16_ipu: greedy streams differ "
+                             "between decode_block 1 and 4")
+    if not np.isfinite(amax):
+        raise AssertionError(f"an activation overflowed the f16 cast: "
+                             f"largest |x| {amax}")
+    return launches
+
+
 # ---------------------------------------------------------------- main
 
 KERNELS = {
@@ -596,6 +813,8 @@ KERNELS = {
             "src/repro/kernels/qmm.py:25"),
     "qmm_packed": ("src/repro_torch/kernels/csrc/qmm.cu",
                    "src/repro/kernels/qmm.py:38"),
+    "mp_matmul": ("src/repro_torch/kernels/csrc/mpmm.cu",
+                  "src/repro/kernels/mpmm.py:42"),
 }
 
 
@@ -625,6 +844,8 @@ def main():
 
     name, smi = phase_build()
     rates_key, rates = card_rates(name)
+    clock_hz = float(REPORT["clocks_max_sm"].split()[0]) * 1e6
+    rates = dict(rates, int32=rates["sms"] * INT32_LANES_PER_SM * clock_hz)
     REPORT["rates"] = {"card": rates_key, **rates}
     err, timing = phase_kernels(rates)
     cfg = get_config("qwen2-0.5b")
@@ -632,6 +853,7 @@ def main():
     launches3, scales8 = phase_serving(name, smi, params, cfg, args.profile)
     launches4 = phase_exact(params, cfg)
     phase_card_vs_cpu(params, cfg, scales8)
+    launches6 = phase_fidelity(params, cfg)
 
     main_launches = {
         "fused_dequant_mm": launches3["fused_dequant_mm"],
@@ -639,6 +861,7 @@ def main():
         + launches4["int4_exact"]["fused_qmm"],
         "qmm": launches4["fidelity_int8"]["qmm"],
         "qmm_packed": launches4["int4_exact"]["qmm_packed"],
+        "mp_matmul": launches6["mp_matmul"],
     }
     kernels = []
     for kname, (source, replaces) in KERNELS.items():

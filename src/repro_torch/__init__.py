@@ -12,7 +12,8 @@ of ``repro``. Where it needs a framework-free piece of the reference
 Entry points (``ServingEngine``, ``models.registry.init_params``,
 ``quant.calibrate.calibrate_act_scales``, ``convert.params_from_numpy``)
 run on the CUDA device unless the caller passes ``device="cpu"``; with no
-CUDA device and no explicit CPU request they raise. The four Pallas
-kernels of the serving path are hand-written CUDA C++ for ``sm_90a``
-under ``kernels/csrc``, built with ``nvcc`` at first use.
+CUDA device and no explicit CPU request they raise. The reference's
+five Pallas kernels are hand-written CUDA C++ for ``sm_90a`` under
+``kernels/csrc``, built with ``nvcc`` at first use; the paper's
+numerics (``core``) are integer torch ops.
 """

@@ -10,9 +10,10 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
-import math
 import re
 from typing import List, Optional, Tuple
+
+from repro_torch.core.ipu import IPUConfig
 
 _ROUTING_TRACE: Optional[List[Tuple[str, str]]] = None
 
@@ -28,40 +29,6 @@ def trace_routing():
         yield records
     finally:
         _ROUTING_TRACE = prev
-
-
-@dataclasses.dataclass(frozen=True)
-class IPUConfig:
-    """Static configuration of one IPU / MC-IPU — a copy of
-    ``repro/core/ipu.py::IPUConfig``'s fields and checks. In this slice
-    it only types ``PrecisionSpec.ipu``; the datapath that consumes it
-    is the paper-numerics slice."""
-
-    n: int = 16
-    w: int = 16
-    accum: str = "fp32"
-    sw_precision: Optional[int] = None
-    multi_cycle: bool = False
-    rounding: str = "trunc"
-    iter_order: str = "asc"
-    acc_l: int = 10
-    operand: str = "fp16"
-
-    def __post_init__(self):
-        if self.w < 10:
-            raise ValueError("IPU precision w must be >= 10 (sp = w-9 >= 1)")
-        if self.accum not in ("fp16", "fp32", "bf16"):
-            raise ValueError(f"bad accum {self.accum}")
-        if self.operand not in ("fp16", "bf16", "tf32"):
-            raise ValueError(f"bad operand {self.operand}")
-        if self.accum == "bf16" and self.sw_precision is None:
-            raise ValueError("accum='bf16' needs an explicit sw_precision")
-        if self.rounding not in ("trunc", "floor"):
-            raise ValueError(f"bad rounding {self.rounding}")
-        if self.n * 225 * (1 << (self.w - 9)) >= (1 << 31):
-            raise ValueError(f"n={self.n}, w={self.w} overflows int32 adder")
-        if 33 + math.ceil(math.log2(self.n)) + self.acc_l >= 54:
-            raise ValueError("accumulator exceeds two-limb range")
 
 
 @dataclasses.dataclass(frozen=True)

@@ -29,7 +29,7 @@ import threading
 from typing import Dict, List, Optional
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
-SOURCES = ("qmm", "fused_dequant")
+SOURCES = ("qmm", "fused_dequant", "mpmm")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -44,6 +44,9 @@ SIGNATURES = {
     "fused_dequant": {
         "fused_dequant_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                  _P],
+    },
+    "mpmm": {
+        "mpmm_launch": [_P, _P, _P] + [_I] * 10 + [_P],
     },
 }
 

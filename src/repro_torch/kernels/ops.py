@@ -17,7 +17,9 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core.ipu import IPUConfig
 from repro_torch.kernels import fused as _fused
+from repro_torch.kernels import mpmm as _mpmm
 from repro_torch.kernels import qmm as _qmm
 from repro_torch.kernels import ref as _ref
 
@@ -127,20 +129,31 @@ def fused_dequant_matmul(x, w, sw, sa=None, *, kind: str = "int8",
                                    kind=kind, act=act)
 
 
-def mp_matmul(*args, **kwargs):
-    """The paper's approximate FP-IP matmul (``repro/kernels/mpmm.py``)
-    belongs to the paper-numerics slice of the port, not yet ported."""
-    raise NotImplementedError(
-        "mp_matmul (the FP-IP mpmm kernel) waits for the paper-numerics "
-        "slice of the port (core/fp16, fixedpoint, nibble, ehu, ipu)")
+def mp_matmul(a, b, cfg: IPUConfig = IPUConfig(), *, fused: bool = False,
+              backend: str = "kernel") -> torch.Tensor:
+    """Approximate FP-IP matmul (the fidelity path): operands cast to f16,
+    (M, K) x (K, N) -> the accumulator format. ``fused=False`` is the
+    paper-faithful nine-plane datapath, ``fused=True`` the single-plane
+    mode. ``backend='ref'`` runs the plain blocked version, which (as the
+    reference's ``backend='xla'``) takes any config; the kernel refuses
+    MC-IPU and non-fp16 operands."""
+    _check_backend(backend)
+    a = a.to(torch.float16).contiguous()
+    b = b.to(torch.float16).contiguous()
+    if backend == "ref":
+        return _ref.mp_matmul_blocked_ref(a, b, cfg, fused=fused)
+    return _mpmm.mp_matmul(a, b, cfg, fused=fused)
+
+
+_COUNTS = (_qmm.LAUNCHES, _fused.LAUNCHES, _mpmm.LAUNCHES)
 
 
 def launch_counts() -> dict:
     """Every kernel wrapper's launch count, by kernel name."""
-    return {**_qmm.LAUNCHES, **_fused.LAUNCHES}
+    return {k: v for counts in _COUNTS for k, v in counts.items()}
 
 
 def reset_launch_counts() -> None:
-    for counts in (_qmm.LAUNCHES, _fused.LAUNCHES):
+    for counts in _COUNTS:
         for k in counts:
             counts[k] = 0

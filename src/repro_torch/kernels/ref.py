@@ -1,16 +1,20 @@
-"""Plain PyTorch versions of the four kernels (no CUDA kernel anywhere).
+"""Plain PyTorch versions of the five kernels (no CUDA kernel anywhere).
 
 Each function repeats the arithmetic of ``repro/kernels/ref.py`` on
-torch tensors, on any device. The wrappers in ``kernels.qmm`` and
-``kernels.fused`` take these for CPU tensors (the CPU tests), and
-``chip_smoke.py`` holds each CUDA kernel against them on the card.
-Integer paths compute in int64 so they are exact; ``torch.round``
+torch tensors, on any device. The wrappers in ``kernels.qmm``,
+``kernels.fused`` and ``kernels.mpmm`` take these for CPU tensors (the
+CPU tests), and ``chip_smoke.py`` holds each CUDA kernel against them on
+the card. Integer paths compute in int64 (or, for the FP-IP emulation,
+the reference's own int32 limbs) so they are exact; ``torch.round``
 rounds half to even like ``jnp.round``.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.core import fixedpoint as fx, fp16 as fpmod, nibble
+from repro_torch.core.ipu import (IPUConfig, NEG_INF_EXP, _shr_i32,
+                                  accumulate, fp16_inner_product)
 from repro_torch.quant.quantize import FP4_E2M1, FP8_E4M3, fp_decode
 
 
@@ -113,3 +117,109 @@ def fused_dequant_mm_ref(x: torch.Tensor, w: torch.Tensor, sw: torch.Tensor,
             xf = xf * sa
     y = xf @ wf
     return y * sa if act == "quant" else y
+
+
+def mp_matmul_ref(a: torch.Tensor, b: torch.Tensor,
+                  cfg: IPUConfig = IPUConfig()) -> torch.Tensor:
+    """Oracle for the faithful mpmm kernel: the ``core.ipu`` inner product
+    broadcast over (M, N). O(M*N*K) memory — test sizes only."""
+    a = a.to(torch.float16)
+    b = b.to(torch.float16)
+    return fp16_inner_product(a[:, None, :], b.T[None], cfg)
+
+
+def mp_matmul_blocked_ref(a: torch.Tensor, b: torch.Tensor,
+                          cfg: IPUConfig = IPUConfig(), *,
+                          fused: bool = False) -> torch.Tensor:
+    """Blocked FP-IP matmul (the counterpart of the reference's
+    ``mp_matmul_xla``): a loop over K-groups with (M, g, N) temporaries,
+    K zero-padded to a multiple of g (value-neutral: a padded product has
+    exponent -28, the least there is, and magnitude 0).
+
+    ``fused=False``: the paper-faithful nine-plane datapath (bit-exact to
+    :func:`mp_matmul_ref` / ``core.ipu``).
+    ``fused=True``: the single-plane mode: full 22-bit mantissa
+    products, EHU alignment against the group max, truncation on a
+    w_f = min(w, 26)-bit fused datapath, group sums entering the
+    accumulator with pre_shift = 1 + w_f - w.
+
+    The nine updates of a group are applied at once
+    (:func:`_group_update`), which gives the reference's value.
+    """
+    a = a.to(torch.float16)
+    b = b.to(torch.float16)
+    m, k = a.shape
+    n = b.shape[1]
+    g = cfg.n
+    pad = -k % g
+    if pad:
+        a = torch.nn.functional.pad(a, (0, pad))
+        b = torch.nn.functional.pad(b, (0, 0, 0, pad))
+    groups = a.shape[1] // g
+    sa, ea, ma = fpmod.decompose(a, fpmod.FP16)
+    sb, eb, mb = fpmod.decompose(b, fpmod.FP16)
+    ea = ea.reshape(m, groups, g)
+    eb = eb.reshape(groups, g, n)
+    if fused:
+        da = (sa * ma).reshape(m, groups, g)
+        db = (sb * mb).reshape(groups, g, n)
+    else:
+        pa = torch.stack(nibble.fp16_planes(sa, ma)).reshape(3, m, groups, g)
+        pb = torch.stack(nibble.fp16_planes(sb, mb)).reshape(3, groups, g, n)
+    w_f = min(cfg.w, 26)
+    zero = torch.zeros((m, n), dtype=torch.int32, device=a.device)
+    acc = fx.FX(zero, zero)
+    exp_acc = torch.full((m, n), NEG_INF_EXP, dtype=torch.int32,
+                         device=a.device)
+    for gi in range(groups):
+        c = ea[:, gi, :, None] + eb[gi][None]            # (m, g, n)
+        mx = torch.amax(c, dim=1)
+        shift = mx[:, None, :] - c
+        active = shift <= cfg.mask_threshold
+        if fused:
+            d = da[:, gi, :, None] * db[gi][None]        # |d| < 2**22
+            rs = shift + (22 - w_f)  # < 0 -> exact left shift
+            al = _shr_i32(d, torch.clamp(rs, min=0), cfg.rounding)
+            al = al << torch.clamp(-rs, 0, max(w_f - 22, 0))
+            al = torch.where(active, al, torch.zeros_like(al))
+            acc, exp_acc = accumulate(
+                acc, exp_acc, torch.sum(al, dim=1, dtype=torch.int32), mx,
+                1 + w_f - cfg.w, torch.zeros_like(mx), cfg)
+            continue
+        # plane i of A against plane j of B, all nine at once: (3, 3, m,
+        # g, n) -> nine adder-tree sums (9, m, n)
+        d = pa[:, None, :, gi, :, None] * pb[None, :, gi, None]
+        al = _shr_i32(d << (cfg.w - 9), shift, cfg.rounding)
+        al = torch.where(active, al, torch.zeros_like(al))
+        s_tree = torch.sum(al, dim=3, dtype=torch.int32).reshape(9, m, n)
+        acc, exp_acc = _group_update(acc, exp_acc, s_tree, mx, cfg)
+    return fx.round_to_fp(acc, exp_acc, cfg.accum_format)
+
+
+def _group_update(acc: fx.FX, exp_acc: torch.Tensor, s_tree: torch.Tensor,
+                  mx: torch.Tensor, cfg: IPUConfig):
+    """The nine accumulator updates of one K-group, ``s_tree[3*i + j]``
+    the adder-tree sum of plane pair (i, j).
+
+    Equal to ``core.ipu.accumulate`` applied to them in turn, in any
+    order: only a group's first update can swap (afterwards exp_acc >=
+    mx), the others' aligned sums depend on exp_acc and mx alone, and
+    two-limb adds are exact integer adds. So the first update runs on
+    the accumulator and the other eight, batched, on zero.
+    """
+    pre = [cfg.pre_shift(i, j) for i in range(3) for j in range(3)]
+    zero = torch.zeros_like(mx)
+    acc, exp_acc = accumulate(acc, exp_acc, s_tree[0], mx, pre[0], zero, cfg)
+    rest, _ = accumulate(
+        fx.zero_like(s_tree[1:]), exp_acc, s_tree[1:], mx,
+        torch.tensor(pre[1:], dtype=torch.int32,
+                     device=mx.device)[:, None, None], zero, cfg)
+    return fx.canon(acc.hi + torch.sum(rest.hi, dim=0, dtype=torch.int32),
+                    acc.lo + torch.sum(rest.lo, dim=0, dtype=torch.int32)), \
+        exp_acc
+
+
+def mp_matmul_fused_ref(a: torch.Tensor, b: torch.Tensor,
+                        cfg: IPUConfig = IPUConfig()) -> torch.Tensor:
+    """Oracle alias for the fused mpmm mode."""
+    return mp_matmul_blocked_ref(a, b, cfg, fused=True)

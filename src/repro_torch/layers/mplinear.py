@@ -258,7 +258,10 @@ def _fp16_ipu_executor(w, x, spec: PrecisionSpec, compute_dtype):
         w16 = wraw.to(torch.float16)
     if not spec.exact:
         return _dot_f32(x, w16, torch.float16)
-    return kops.mp_matmul(x, w16, spec.ipu)
+    lead = x.shape[:-1]
+    x2 = x.to(torch.float16).reshape(-1, x.shape[-1])
+    y = kops.mp_matmul(x2, w16, spec.ipu)
+    return y.to(torch.float32).reshape(*lead, -1)
 
 
 def mp_linear(params, x: torch.Tensor, spec: PrecisionSpec,

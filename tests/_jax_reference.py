@@ -21,7 +21,10 @@ import sys
 import numpy as np
 
 ARCH = "qwen2-0.5b"
-LM_POLICIES = ("bf16", "int8_serving", "int4_serving", "fidelity_int8")
+LM_POLICIES = ("bf16", "int8_serving", "int4_serving", "fidelity_int8",
+               "fidelity_fp16_ipu")
+# the policies with int routes, whose act scales are calibrated
+CALIBRATED = ("int8_serving", "int4_serving", "fidelity_int8")
 
 
 def _np_tree(tree):
@@ -63,10 +66,10 @@ def task_lm():
         cfg = dataclasses.replace(base, precision_policy=pol)
         api = registry.build(cfg)
         scales = None
-        if pol != "bf16":
+        if pol in CALIBRATED:
             scales = calibrate_act_scales(cfg, api, params,
                                           prompts=calib_prompts())
-        if get_policy(pol).default.exact:
+        if pol in CALIBRATED and get_policy(pol).default.exact:
             # the same calibration op by op: XLA's fusion of the
             # dynamic per-row act quantize can flip a rounding that
             # the op-by-op program (and the port) does not
@@ -146,6 +149,7 @@ ENGINE_CASES = {
                                       fused_executors="off")),
     "int4_off_b4": ("int4_serving", dict(decode_block=4,
                                          fused_executors="off")),
+    "fp16_ipu_b4": ("fidelity_fp16_ipu", dict(decode_block=4)),
 }
 # stop ids taken from the greedy streams, so that EOS stopping fires
 # mid-stream (and mid-block) under every policy the cases serve
@@ -172,7 +176,8 @@ def task_serving():
         api = registry.build(cfg)
         if pol not in out["scales"]:
             out["scales"][pol] = calibrate_act_scales(
-                cfg, api, params, prompts=calib_prompts())
+                cfg, api, params, prompts=calib_prompts()) \
+                if pol in CALIBRATED else None
         config = EngineConfig(batch_slots=2, cache_len=64, prefill_chunk=4,
                               act_calibration=out["scales"][pol], **kw)
 

@@ -8,6 +8,8 @@ import sys
 import tempfile
 
 import numpy as np
+import pytest
+import torch
 
 import jax
 
@@ -40,6 +42,19 @@ def f32(x):
     if hasattr(x, "detach"):
         return np.asarray(to_numpy(x), np.float32)
     return np.asarray(x, np.float32)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_intra_op_thread():
+    """Run a test module's torch ops on one intra-op thread (imported by
+    the modules that use it). The suite runs several workers on shared
+    cores; a thread pool of every core's size in each worker
+    oversubscribes them, and the plain FP-IP matmul's many small ops then
+    slow by more than an order of magnitude."""
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
 
 
 _REFERENCE = {}

@@ -10,7 +10,8 @@ fixture, never at import). Tolerances: the exact kernels are
 ``torch.equal`` to their plain versions; ``fused_dequant_mm`` agrees
 with its plain version within 2 gamma_K (|x| @ |w|) elementwise, the
 most two f32 summation orders of the same products can differ by
-(gamma_K = K u / (1 - K u), u = 2^-24).
+(gamma_K = K u / (1 - K u), u = 2^-24); ``mp_matmul`` is bit-equal to
+its plain version (compared on the output's bit patterns).
 """
 import dataclasses
 
@@ -19,6 +20,7 @@ import pytest
 import torch
 
 from repro_torch.configs import reduced
+from repro_torch.core.ipu import IPUConfig
 from repro_torch.kernels import fused as tfused
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
@@ -149,3 +151,63 @@ def test_engine_fused_on_off_identical_on_the_card(cuda):
         counts = tops.launch_counts()
         assert counts["fused_qmm" if mode == "on" else "qmm"] > 0, counts
     assert streams["on"] == streams["off"]
+
+
+# ------------------------------------------------------------ mp_matmul
+
+MP_CFGS = [IPUConfig(n=16, w=16, accum="fp32"),
+           IPUConfig(n=16, w=28, accum="fp32"),
+           IPUConfig(n=8, w=12, accum="fp16")]
+
+
+def _f16_operands(gen, m, k, n, device):
+    """'Wide' f16 operands (normal times 2^[-10, 12)) with zeros, -0,
+    subnormals and an all-zero K-group, made on the card."""
+    def wide(shape):
+        x = torch.randn(shape, generator=gen, device=device)
+        e = torch.randint(-10, 12, shape, generator=gen, device=device)
+        return torch.ldexp(x, e).to(torch.float16).nan_to_num(0, 0, 0)
+    a, b = wide((m, k)), wide((k, n))
+    a[0] = 0
+    a[1, ::3] = -0.0
+    sub = torch.randint(-1023, 1024, (k,), generator=gen, device=device)
+    a[2 % m] = (sub * 2.0 ** -24).to(torch.float16)
+    b[:min(16, k), 0] = 0
+    return a.contiguous(), b.contiguous()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fused", [False, True])
+@pytest.mark.parametrize("cfg", MP_CFGS + [
+    IPUConfig(n=16, w=16, accum="fp32", rounding="floor"),
+    IPUConfig(n=16, w=16, accum="bf16", sw_precision=12)],
+    ids=lambda c: f"n{c.n}w{c.w}{c.accum}{c.rounding[:2]}")
+def test_mp_matmul_equals_plain(cuda, cfg, fused):
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(33)
+    for m, k, n in ((5, 200, 72), (8, 896, 130), (33, 64, 40), (3, 7, 2)):
+        a, b = _f16_operands(gen, m, k, n, cuda)
+        got = tops.mp_matmul(a, b, cfg, fused=fused)
+        want = tops.mp_matmul(a, b, cfg, fused=fused, backend="ref")
+        assert got.dtype == want.dtype and got.shape == (m, n)
+        assert torch.equal(got.view(torch.int16 if got.element_size() == 2
+                                    else torch.int32),
+                           want.view(torch.int16 if want.element_size() == 2
+                                     else torch.int32)), (m, k, n)
+
+
+@pytest.mark.cuda
+def test_mp_matmul_wrapper_counts_and_refuses(cuda):
+    a = torch.ones((4, 32), dtype=torch.float16, device=cuda)
+    b = torch.ones((32, 8), dtype=torch.float16, device=cuda)
+    before = tops.launch_counts()["mp_matmul"]
+    assert float(tops.mp_matmul(a, b)[0, 0]) == 32.0
+    assert tops.launch_counts()["mp_matmul"] == before + 1
+    tops.mp_matmul(a, b, backend="ref")
+    assert tops.launch_counts()["mp_matmul"] == before + 1
+    for cfg in (IPUConfig(multi_cycle=True), IPUConfig(operand="bf16")):
+        with pytest.raises(NotImplementedError):
+            tops.mp_matmul(a, b, cfg)
+    with pytest.raises(ValueError):
+        tops.mp_matmul(a, b.cpu())
+    assert tops.launch_counts()["mp_matmul"] == before + 1

@@ -71,6 +71,38 @@ def test_importing_the_package_loads_no_jax_no_reference_no_kernel():
     assert int(res.stdout.strip()) > 20
 
 
+NUMERICS_MODULES = ("repro_torch.core", "repro_torch.core.fp16",
+                    "repro_torch.core.fixedpoint", "repro_torch.core.nibble",
+                    "repro_torch.core.ehu", "repro_torch.core.ipu",
+                    "repro_torch.core.error_bounds", "repro_torch.kernels.mpmm")
+
+
+def test_paper_numerics_modules_stand_alone():
+    """The paper-numerics modules and the mpmm wrapper, each imported
+    first in a fresh interpreter: no JAX, nothing of ``repro``, no kernel
+    library loaded, no CUDA context made."""
+    for mod in NUMERICS_MODULES:
+        assert (PKG.parent / (mod.replace(".", "/") + ".py")).exists() or \
+            (PKG.parent / mod.replace(".", "/") / "__init__.py").exists()
+    code = (
+        "import importlib, sys, torch\n"
+        f"for name in {NUMERICS_MODULES!r}:\n"
+        "    importlib.import_module(name)\n"
+        "bad = sorted(n for n in sys.modules\n"
+        "             if n.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+        "assert not bad, bad\n"
+        "import repro_torch.kernels._build as b\n"
+        "assert not b._LIBS, b._LIBS\n"
+        "assert not torch.cuda.is_initialized()\n"
+        "print('ok')\n")
+    env = {"PYTHONPATH": str(PKG.parent), "PATH": "/usr/bin:/bin",
+           "JAX_PLATFORMS": "cpu"}
+    res = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "ok"
+
+
 @pytest.fixture
 def no_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -120,6 +152,8 @@ def test_cpu_tensors_never_reach_the_loader(monkeypatch):
     y = tops.fused_quantized_matmul(x, b, sw, torch.tensor(0.5))
     assert float(y[0, 0]) == 8.0          # round(1 / 0.5) * 8 * 0.5
     y = tops.fused_dequant_matmul(x, b, sw, torch.tensor(0.5), act="qdq")
+    assert float(y[0, 0]) == 8.0
+    y = tops.mp_matmul(x.half(), b.half())
     assert float(y[0, 0]) == 8.0
     assert tops.launch_counts() == before
 

@@ -25,6 +25,7 @@ import jax.numpy as jnp
 
 from repro.kernels import ops as jops
 from repro.quant import quantize as jq
+from repro_torch.core.ipu import IPUConfig
 from repro_torch.kernels import fused as tfused
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import qmm as tqmm
@@ -217,7 +218,7 @@ def test_wrappers_take_plain_version_on_cpu_and_count_no_launch():
         tops.int8_matmul(a, b, backend="ref").numpy())
     assert all(v == 0 for v in tops.launch_counts().values())
     assert set(tops.launch_counts()) == {"qmm", "qmm_packed", "fused_qmm",
-                                         "fused_dequant_mm"}
+                                         "fused_dequant_mm", "mp_matmul"}
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take():
@@ -242,5 +243,5 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
     with pytest.raises(ValueError):
         tops.fused_dequant_matmul(x, torch.zeros((8, 3), dtype=torch.int8),
                                   torch.ones((1, 3)), backend="xla")
-    with pytest.raises(NotImplementedError):
-        tops.mp_matmul(x, x)
+    with pytest.raises(NotImplementedError):    # the kernel is plain IPU(w)
+        tops.mp_matmul(x, x.T, IPUConfig(multi_cycle=True))

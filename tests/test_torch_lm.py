@@ -35,7 +35,8 @@ from repro_torch.layers.mplinear import executor_variant
 from repro_torch.models import registry
 from repro_torch.quant.calibrate import calibrate_act_scales
 
-from _jax_reference import LM_POLICIES, calib_prompts, lm_inputs
+from _jax_reference import CALIBRATED, LM_POLICIES, calib_prompts, lm_inputs
+from _torch_parity import one_intra_op_thread  # noqa: F401 (autouse)
 from _torch_parity import reference
 
 LOGIT_ATOL = 1e-5
@@ -107,7 +108,7 @@ def test_lm_matches_reference(ref, policy, variant):
     _assert_caches(c2, case["decode_caches"], "decode")
 
 
-@pytest.mark.parametrize("policy", [p for p in LM_POLICIES if p != "bf16"])
+@pytest.mark.parametrize("policy", CALIBRATED)
 def test_calibrated_scales_match_reference(ref, policy):
     out, params = ref
     cfg = dataclasses.replace(reduced("qwen2-0.5b"), precision_policy=policy)

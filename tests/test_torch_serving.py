@@ -26,6 +26,7 @@ from repro_torch.serving.engine import ServingEngine
 
 from _jax_reference import (ENGINE_CASES, STOPS, TRACE, drive_trace,
                              trace_prompts)
+from _torch_parity import one_intra_op_thread  # noqa: F401 (autouse)
 from _torch_parity import reference
 
 
