@@ -15,11 +15,16 @@ printing one line that starts with ``phase``:
    ``csrc/fused_dequant.cu``), the three exact kernels ``torch.equal``,
    ``mp_matmul`` bit-equal in three IPU configs, both modes and both
    roundings, on "wide" f16 operands with zeros, subnormals and an
-   all-zero K-group; then each kernel's time over one decode step's
-   projections (24 layers x 7 projections at M = 8) beside its plain
-   version's (for ``mp_matmul``: one layer's seven projections), the
-   card's least time for the same bytes and operations, and a library
-   call where one computes the same function;
+   all-zero K-group; ``qmm`` (the tensor-core kernel) also at M in
+   {1, 8, 16, 17, 256}, ragged shapes, misaligned pointers, all -128
+   operands and a forced split of 1; then each kernel's time over one
+   decode step's projections (24 layers x 7 projections at M = 8),
+   eager and replayed from a CUDA graph, beside its plain version's
+   (for ``mp_matmul``: one layer's seven projections), the card's least
+   time for the same bytes and operations, and a library call where one
+   computes the same function (``torch._int_mm`` for ``qmm``, at M = 8
+   on rows padded to 32 and at 256 rows in turns with the kernel), and
+   ``qmm``'s launch plans compared per projection shape;
 3. full-width qwen2-0.5b (24 layers, d_model 896, vocab 151936, random
    weights from a seed) served by the port's ``ServingEngine`` under
    ``int4_serving`` with calibrated act scales and the fused executors:
@@ -128,6 +133,23 @@ def median_ms(fn, reps=10, warm=2):
         e1.synchronize()
         times.append(e0.elapsed_time(e1))
     return statistics.median(times)
+
+
+def graph_ms(fn, reps=10):
+    """Median replay time of ``fn`` captured once in a CUDA graph: the
+    kernels' own time without the wrappers' host cost. Warmed up on a
+    side stream first, as capture wants."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    ms = median_ms(graph.replay, reps=reps)
+    del graph
+    return ms
 
 
 # ------------------------------------------------------------- phase 1
@@ -261,6 +283,100 @@ def _check_kernels(gen):
     return err, n_cmp
 
 
+def _misaligned(t, offset):
+    """A contiguous copy of ``t`` whose data pointer lies ``offset`` bytes
+    past the allocator's (16-byte aligned) start."""
+    buf = torch.empty(t.numel() + offset, dtype=t.dtype, device=t.device)
+    out = buf[offset:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+def _check_qmm(gen):
+    """``qmm`` (the tensor-core kernel) ``torch.equal`` to its plain
+    version: M in {1, 8, 16, 17, 256} x the seven projection shapes,
+    ragged shapes, a misaligned activation and a misaligned weight
+    pointer, all -128 operands at K = 4864, and the split forced to 1
+    against the default plan. Returns the comparison count."""
+    from repro_torch.kernels import qmm, ref
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+
+    def int8(shape):
+        return torch.randint(-128, 128, shape, generator=gen, device="cuda",
+                             dtype=torch.int8)
+
+    def unsplit(a, b):
+        (m, k), n = a.shape, b.shape[1]
+        return qmm.plan_qmm(m, n, k, sms, splits=1)
+
+    def same(a, b, what, a0=None, b0=None, plan=None):
+        want = ref.qmm_ref(a if a0 is None else a0, b if b0 is None else b0)
+        if not torch.equal(qmm.qmm(a, b, plan=plan), want):
+            raise AssertionError(f"qmm {what} {plan}: not bit-equal to its "
+                                 f"plain version")
+        return 1
+
+    n_cmp = 0
+    for m in (1, 8, 16, 17, 256):
+        for _, k, n in LAYER:
+            n_cmp += same(int8((m, k)), int8((k, n)), (m, k, n))
+    for m, k, n in ((5, 200, 72), (33, 128, 130), (17, 100, 30)):
+        n_cmp += same(int8((m, k)), int8((k, n)), (m, k, n))
+    for m, k, n in ((8, 896, 896), (17, 4864, 896)):
+        a0, b0 = int8((m, k)), int8((k, n))
+        n_cmp += same(_misaligned(a0, 1), b0, f"{(m, k, n)} act at +1",
+                      a0=a0)
+        n_cmp += same(a0, _misaligned(b0, 3), f"{(m, k, n)} weight at +3",
+                      b0=b0)
+    lo = torch.full((8, 4864), -128, dtype=torch.int8, device="cuda")
+    hi = torch.full((4864, 896), -128, dtype=torch.int8, device="cuda")
+    n_cmp += same(lo, hi, "all -128 at K = 4864")
+    n_cmp += same(lo, hi, "all -128 at K = 4864", plan=unsplit(lo, hi))
+    a, b = int8((8, 4864)), int8((4864, 896))
+    if not torch.equal(qmm.qmm(a, b, plan=unsplit(a, b)), qmm.qmm(a, b)):
+        raise AssertionError("qmm: split 1 and the default plan differ")
+    n_cmp += 1
+    torch.cuda.synchronize()
+    return n_cmp
+
+
+def _time_qmm_plans(gen):
+    """Per projection shape at M in {8, 256}: the graph-replayed time of
+    one ``qmm`` launch (its zeroing memset included), in us, averaged
+    over N_LAYERS weights, under the default plan (listed with its block
+    count), with K unsplit, and planned for 1, 2 and 4 blocks per SM:
+    what the planner's choice rests on; and the output's zeroing alone
+    (``torch.zeros``, which a split plan needs)."""
+    from repro_torch.kernels import qmm
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    out = {}
+    for m in (8, 256):
+        a = {k: torch.randint(-128, 128, (m, k), generator=gen,
+                              device="cuda", dtype=torch.int8)
+             for k in (896, 4864)}
+        for name, k, n in LAYER:
+            ws = [torch.randint(-128, 128, (k, n), generator=gen,
+                                device="cuda", dtype=torch.int8)
+                  for _ in range(N_LAYERS)]
+            plans = {"default": qmm.plan_qmm(m, n, k, sms),
+                     "split_1": qmm.plan_qmm(m, n, k, sms, splits=1)}
+            plans.update({f"per_sm_{b}": qmm.plan_qmm(m, n, k, sms,
+                                                      blocks_per_sm=b)
+                          for b in (1, 2, 4)})
+            out[f"{m} {name}"] = {
+                label: graph_ms(lambda: [qmm.qmm(a[k], w, plan=p)
+                                         for w in ws]) / len(ws) * 1e3
+                for label, p in plans.items()}
+            out[f"{m} {name}"]["zeroing_alone"] = graph_ms(
+                lambda: [torch.zeros((m, n), dtype=torch.int32,
+                                     device="cuda") for _ in ws]
+            ) / len(ws) * 1e3
+            out[f"{m} {name}"]["plan"] = dict(
+                plans["default"]._asdict(),
+                blocks=plans["default"].blocks(m, n))
+    return out
+
+
 class _Sweep:
     """One decode step's projections: 24 layers x 7 projection shapes of
     qwen2-0.5b at M rows, every layer its own weights (so the weights
@@ -298,9 +414,9 @@ class _Sweep:
 
 
 def _time_kernels(gen, rates):
-    """Per kernel: the sweep's median time, the plain version's, the
-    least time the card could take, and a library call's where one
-    takes the same inputs."""
+    """Per kernel: the sweep's median time, eager and replayed from a
+    CUDA graph, the plain version's, the least time the card could take,
+    and a library call's where one takes the same inputs."""
     from repro_torch.kernels import ops
     out = {}
     m = 8
@@ -334,6 +450,7 @@ def _time_kernels(gen, rates):
     for name, (sk, make, act_b, out_b, scales, peak) in plans.items():
         s = sweeps[sk]
         ms = median_ms(lambda: s.run(make(s, "kernel")))
+        g_ms = graph_ms(lambda: s.run(make(s, "kernel")))
         plain_ms = median_ms(lambda: s.run(make(s, "ref")), reps=5)
         nbytes, nops = s.traffic(act_b, out_b, scales)
         t_bytes = nbytes / rates["bytes_per_s"] * 1e3
@@ -341,33 +458,44 @@ def _time_kernels(gen, rates):
         library_ms = None
         if name == "qmm":
             library_ms = _int_mm_ms(s)
-        out[name] = {"ms": ms, "plain_ms": plain_ms,
+        out[name] = {"ms": ms, "graph_ms": g_ms, "plain_ms": plain_ms,
                      "bound_ms": max(t_bytes, t_ops),
                      "bound_by": "bytes" if t_bytes >= t_ops
                      else "operations",
                      "library_ms": library_ms, "bytes": nbytes,
                      "operations": nops, "calls": N_LAYERS * len(LAYER),
                      "rows": m}
-    # the prefill-wave shape (8 slots x a 32-token chunk): where
-    # torch._int_mm takes the inputs, both timed over one layer
+    out["qmm"]["library_rows"] = INT_MM_MIN_ROWS
+    # the prefill-wave shape (8 slots x a 32-token chunk), one layer:
+    # qmm and torch._int_mm in turns (kernel, library, library, kernel)
     wave = _Sweep(gen, 256, "int8")
     wave.layers = wave.layers[:1]
+    kernel = lambda: wave.run(                          # noqa: E731
+        lambda k, w, sw: ops.int8_matmul(wave.a[k], w))
+    turns = [median_ms(kernel), _int_mm_ms(wave), _int_mm_ms(wave),
+             median_ms(kernel)]
     out["qmm_at_256_rows"] = {
-        "ms": median_ms(lambda: wave.run(
-            lambda k, w, sw: ops.int8_matmul(wave.a[k], w))),
-        "int_mm_ms": _int_mm_ms(wave)}
+        "turns_ms": turns, "ms": statistics.mean([turns[0], turns[3]]),
+        "int_mm_ms": statistics.mean([turns[1], turns[2]]),
+        "graph_ms": graph_ms(kernel)}
     return out
 
 
+# torch._int_mm refuses 16 rows or fewer
+INT_MM_MIN_ROWS = 32
+
+
 def _int_mm_ms(s):
-    """torch._int_mm over the sweep, or None where it refuses the shape
-    (it wants more than 16 rows): a yardstick, never used by the port."""
-    try:
-        s.run(lambda k, w, sw: torch._int_mm(s.a[k], w))
-    except RuntimeError as exc:
-        REPORT.setdefault("int_mm_refused", {})[s.m] = str(exc)[:200]
-        return None
-    return median_ms(lambda: s.run(lambda k, w, sw: torch._int_mm(s.a[k], w)))
+    """torch._int_mm over the sweep (a yardstick, never used by the
+    port). Below INT_MM_MIN_ROWS rows it refuses the shape, so the
+    activations are padded with zero rows to that count first, outside
+    the timed region: the call then does 4x the rows of a decode step
+    but reads the same weights."""
+    a = s.a
+    if s.m < INT_MM_MIN_ROWS:
+        a = {k: torch.cat([v, v.new_zeros(INT_MM_MIN_ROWS - s.m, k)])
+             for k, v in a.items()}
+    return median_ms(lambda: s.run(lambda k, w, sw: torch._int_mm(a[k], w)))
 
 
 # ------------------------------------------------- phase 2: mp_matmul
@@ -464,6 +592,8 @@ def _time_mpmm(gen, rates, cfg):
                 call(x[k], w)
 
     ms = median_ms(lambda: sweep(lambda a, w: ops.mp_matmul(a, w, cfg)))
+    g_ms = graph_ms(lambda: sweep(lambda a, w: ops.mp_matmul(a, w, cfg)),
+                    reps=5)
     layer_ms = median_ms(lambda: sweep(
         lambda a, w: ops.mp_matmul(a, w, cfg), depth=1))
     plain_layer_ms = median_ms(lambda: sweep(
@@ -484,7 +614,7 @@ def _time_mpmm(gen, rates, cfg):
     nops = 4 * products + 27 * active
     t_bytes = nbytes / rates["bytes_per_s"] * 1e3
     t_ops = nops / rates["int32"] * 1e3
-    return {"ms": ms, "plain_ms": plain_layer_ms,
+    return {"ms": ms, "graph_ms": g_ms, "plain_ms": plain_layer_ms,
             "plain_scope": "one layer (7 projections), 3 reps",
             "ms_one_layer": layer_ms,
             "bound_ms": max(t_bytes, t_ops),
@@ -502,7 +632,9 @@ def phase_kernels(rates):
     gen.manual_seed(1234)
     fidelity = get_policy("fidelity_fp16_ipu").default.ipu
     err, n_cmp = _check_kernels(gen)
-    n_cmp += _check_mpmm(gen, fidelity)
+    n_qmm = _check_qmm(gen)
+    n_cmp += n_qmm + _check_mpmm(gen, fidelity)
+    qmm_plans = _time_qmm_plans(gen)
     err["mp_matmul"] = 0.0             # every comparison was bit-equal
     timing = _time_kernels(gen, rates)
     timing["mp_matmul"] = _time_mpmm(gen, rates, fidelity)
@@ -511,7 +643,8 @@ def phase_kernels(rates):
           f"{timing['mp_matmul']['exact_false_f32_matmul_ms']:.3f} ms over "
           f"the decode step's projections, mp_matmul "
           f"{timing['mp_matmul']['ms']:.3f} ms", flush=True)
-    log(2, comparisons=n_cmp, max_abs_err=err, timing=timing)
+    log(2, comparisons=n_cmp, qmm_comparisons=n_qmm, max_abs_err=err,
+        timing=timing, qmm_plans_us=qmm_plans)
     return err, timing
 
 
@@ -870,7 +1003,8 @@ def main():
             "name": kname, "route": "cuda", "source": source,
             "replaces": replaces, "launches": main_launches[kname],
             "max_abs_err": err[kname], "ms": t["ms"],
-            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "graph_ms": t["graph_ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
     REPORT["kernels"] = kernels
     REPORT["card"] = smi

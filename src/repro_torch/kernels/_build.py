@@ -38,7 +38,8 @@ _I = ctypes.c_int
 # C signature of every exported entry: (argtypes, restype)
 SIGNATURES = {
     "qmm": {
-        "qmm_launch": [_P, _P, _P, _I, _I, _I, _I, _P],
+        # a, b, out, M, N, K, packed, mt, bn, splits, kc, a_vec, w_vec
+        "qmm_launch": [_P, _P, _P] + [_I] * 10 + [_P],
         "fused_qmm_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     },
     "fused_dequant": {

@@ -23,6 +23,7 @@ from repro_torch.configs import reduced
 from repro_torch.core.ipu import IPUConfig
 from repro_torch.kernels import fused as tfused
 from repro_torch.kernels import ops as tops
+from repro_torch.kernels import qmm as tqmm
 from repro_torch.kernels import ref as tref
 from repro_torch.models import registry
 from repro_torch.quant.quantize import (FP4_E2M1, FP8_E4M3, fp_quantize,
@@ -120,6 +121,116 @@ def test_wrappers_count_launches_and_reject_mixed_devices(cuda):
     assert tops.launch_counts()["qmm"] == before + 1
     with pytest.raises(ValueError):
         tops.int8_matmul(a, b.cpu())
+
+
+# ------------------------------------------------- qmm on the tensor cores
+
+def _misaligned(t: torch.Tensor, offset: int) -> torch.Tensor:
+    """A contiguous copy of ``t`` whose data pointer lies ``offset``
+    bytes past a 16-byte boundary."""
+    buf = torch.empty(t.numel() + offset, dtype=t.dtype, device=t.device)
+    out = buf[offset:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+def _int8(gen, shape, device):
+    return torch.randint(-128, 128, shape, generator=gen, device=device,
+                         dtype=torch.int8)
+
+
+def _qmm(a, b, splits=None):
+    """``qmm`` with the number of K ranges forced (None: the default
+    plan)."""
+    if splits is None:
+        return tqmm.qmm(a, b)
+    sms = torch.cuda.get_device_properties(a.device).multi_processor_count
+    (m, k), n = a.shape, b.shape[1]
+    return tqmm.qmm(a, b, plan=tqmm.plan_qmm(m, n, k, sms, splits))
+
+
+# edge shapes: ragged M, N, K; rows aligned to 8, 4, 2 and 1 bytes
+QMM_EDGES = [(5, 200, 72), (33, 128, 130), (17, 100, 30), (1, 32, 7),
+             (9, 192, 129), (8, 4864, 896), (256, 896, 128), (3, 7, 2),
+             (16, 33, 64), (4, 0, 8)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", QMM_EDGES, ids=str)
+def test_qmm_equals_plain_at_edges(cuda, shape):
+    m, k, n = shape
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(m * 7919 + k * 31 + n)
+    a, b = _int8(gen, (m, k), cuda), _int8(gen, (k, n), cuda)
+    want = tref.qmm_ref(a, b)
+    assert torch.equal(_qmm(a, b), want)
+    for splits in (1, 3, 7):
+        assert torch.equal(_qmm(a, b, splits), want), splits
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offsets", [(1, 0), (0, 1), (4, 8), (3, 5)],
+                         ids=str)
+def test_qmm_equals_plain_at_misaligned_pointers(cuda, offsets):
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(41)
+    for m, k, n in ((8, 896, 128), (17, 256, 64), (5, 200, 72)):
+        a0, b0 = _int8(gen, (m, k), cuda), _int8(gen, (k, n), cuda)
+        a, b = _misaligned(a0, offsets[0]), _misaligned(b0, offsets[1])
+        assert a.data_ptr() % 16 == offsets[0] % 16
+        assert b.data_ptr() % 16 == offsets[1] % 16
+        assert torch.equal(_qmm(a, b), tref.qmm_ref(a0, b0))
+        assert torch.equal(_qmm(a, b, 1), tref.qmm_ref(a0, b0))
+
+
+@pytest.mark.cuda
+def test_qmm_extremes_at_full_depth(cuda):
+    """All -128 operands at K = 4864: every product is 2^14, every sum
+    4864 * 2^14, with the split forced to 1 and to several."""
+    a = torch.full((8, 4864), -128, dtype=torch.int8, device=cuda)
+    b = torch.full((4864, 896), -128, dtype=torch.int8, device=cuda)
+    want = tref.qmm_ref(a, b)
+    assert int(want[0, 0]) == 4864 * 2 ** 14
+    for splits in (None, 1, 5, 38):
+        assert torch.equal(_qmm(a, b, splits), want), splits
+
+
+@pytest.mark.cuda
+def test_qmm_refuses_a_plan_that_does_not_cover_k(cuda):
+    a = torch.ones((8, 256), dtype=torch.int8, device=cuda)
+    b = torch.ones((256, 64), dtype=torch.int8, device=cuda)
+    before = tops.launch_counts()["qmm"]
+    for plan in (tqmm.QmmPlan(1, 32, 1, 128), tqmm.QmmPlan(3, 32, 1, 256),
+                 tqmm.QmmPlan(1, 48, 1, 256), tqmm.QmmPlan(1, 32, 9, 32)):
+        with pytest.raises(RuntimeError, match="cudaError_t"):
+            tqmm.qmm(a, b, plan=plan)
+    assert tops.launch_counts()["qmm"] == before
+    assert int(tqmm.qmm(a, b, plan=tqmm.QmmPlan(1, 32, 8, 32))[0, 0]) == 256
+
+
+@pytest.mark.cuda
+def test_qmm_counts_one_launch_per_call_and_replays_in_a_graph(cuda):
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(43)
+    a, b = _int8(gen, (8, 4864), cuda), _int8(gen, (4864, 896), cuda)
+    want = tref.qmm_ref(a, b)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert tqmm.plan_qmm(8, 896, 4864, sms).splits > 1  # a zeroed output
+    before = tops.launch_counts()["qmm"]
+    tops.int8_matmul(a, b)
+    assert tops.launch_counts()["qmm"] == before + 1
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        tops.int8_matmul(a, b)                  # warm up off the default
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = tops.int8_matmul(a, b)
+    graph.replay()
+    graph.replay()                    # zeroing is part of the graph
+    torch.cuda.synchronize()
+    assert torch.equal(out, want)
 
 
 @pytest.mark.cuda
