@@ -17,14 +17,19 @@ printing one line that starts with ``phase``:
    roundings, on "wide" f16 operands with zeros, subnormals and an
    all-zero K-group; ``qmm`` (the tensor-core kernel) also at M in
    {1, 8, 16, 17, 256}, ragged shapes, misaligned pointers, all -128
-   operands and a forced split of 1; then each kernel's time over one
-   decode step's projections (24 layers x 7 projections at M = 8),
-   eager and replayed from a CUDA graph, beside its plain version's
-   (for ``mp_matmul``: one layer's seven projections), the card's least
-   time for the same bytes and operations, and a library call where one
-   computes the same function (``torch._int_mm`` for ``qmm``, at M = 8
-   on rows padded to 32 and at 256 rows in turns with the kernel), and
-   ``qmm``'s launch plans compared per projection shape;
+   operands and a forced split of 1; ``fused_dequant_mm`` also at M in
+   {1, 16, 17}, G = 7 and 38, misaligned pointers, each kind's largest
+   codes, the fewest and the most K ranges, and bit-identical over
+   repeated launches and CUDA-graph replays; then each kernel's time
+   over one decode step's projections (24 layers x 7 projections at
+   M = 8), eager and replayed from a CUDA graph, beside its plain
+   version's (for ``mp_matmul``: one layer's seven projections), the
+   card's least time for the same bytes and operations, and a library
+   call where one computes the same function (``torch._int_mm`` for
+   ``qmm``, at M = 8 on rows padded to 32 and at 256 rows in turns with
+   the kernel); ``fused_dequant_mm`` also at 256 rows over one layer and
+   per call on the host; and ``qmm``'s and ``fused_dequant_mm``'s launch
+   plans compared per projection shape;
 3. full-width qwen2-0.5b (24 layers, d_model 896, vocab 151936, random
    weights from a seed) served by the port's ``ServingEngine`` under
    ``int4_serving`` with calibrated act scales and the fused executors:
@@ -135,10 +140,9 @@ def median_ms(fn, reps=10, warm=2):
     return statistics.median(times)
 
 
-def graph_ms(fn, reps=10):
-    """Median replay time of ``fn`` captured once in a CUDA graph: the
-    kernels' own time without the wrappers' host cost. Warmed up on a
-    side stream first, as capture wants."""
+def capture(fn):
+    """(``fn`` captured once in a CUDA graph, its output tensors), warmed
+    up on a side stream first, as capture wants."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -146,7 +150,14 @@ def graph_ms(fn, reps=10):
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        fn()
+        out = fn()
+    return graph, out
+
+
+def graph_ms(fn, reps=10):
+    """Median replay time of ``fn`` captured once in a CUDA graph: the
+    kernels' own time without the wrappers' host cost."""
+    graph, _ = capture(fn)
     ms = median_ms(graph.replay, reps=reps)
     del graph
     return ms
@@ -340,6 +351,177 @@ def _check_qmm(gen):
     return n_cmp
 
 
+def _fd_same(x, w, sw, sa, kind, act, what, plan=None):
+    """``fused_dequant_mm`` within 2 gamma_K of its plain version (the
+    kernel's output is returned)."""
+    from repro_torch.kernels import fused, ref
+    got = fused.fused_dequant_mm(x, w, sw, sa, kind=kind, act=act, plan=plan)
+    want = ref.fused_dequant_mm_ref(x, w, sw, sa, kind=kind, act=act)
+    diff = (got.double() - want.double()).abs()
+    if not bool((diff <= _sum_bound(x, w, sw, sa, kind, act)).all()):
+        raise AssertionError(f"fused_dequant_mm {kind}/{act} {what} {plan}: "
+                             f"max diff {float(diff.max())} over its bound")
+    return got, float(diff.max())
+
+
+def _graph_twice(fn):
+    """fn's output from a CUDA graph, replayed once and then twice more."""
+    graph, out = capture(fn)
+    graph.replay()
+    torch.cuda.synchronize()
+    once = out.clone()
+    graph.replay()
+    graph.replay()
+    torch.cuda.synchronize()
+    return once, out.clone()
+
+
+def _check_fused_dequant(gen):
+    """``fused_dequant_mm`` against its plain version beyond
+    ``_check_kernels``' shapes (M in {8, 256}): M in {1, 16, 17} x the
+    seven projection shapes x every kind and act; G = 38 at M = 8 and
+    G = 7 at M = 16; the fewest and the most K ranges at M in {8, 256}
+    for three kind/act pairs; misaligned x, w and sw pointers (bit-equal
+    to the aligned result too); each kind's largest codes at K = 4864;
+    and two launches, a graph replay and two replays in a row
+    ``torch.equal`` at split plans. Returns (comparisons, max |kernel -
+    plain|)."""
+    from repro_torch.kernels import fused
+    n_cmp, err = 0, 0.0
+
+    def same(*args, **kw):
+        nonlocal n_cmp, err
+        got, e = _fd_same(*args, **kw)
+        n_cmp += 1
+        err = max(err, e)
+        return got
+
+    cases = [(m, k, n, 1) for m in (1, 16, 17) for _, k, n in LAYER]
+    cases += [(8, 4864, 896, 38), (16, 896, 896, 7)]
+    for m, k, n, groups in cases:
+        x = torch.randn((m, k), generator=gen, device="cuda") * 2
+        sa = (x.abs().amax() / 127).reshape(())
+        for kind in fused.KINDS:
+            w, sw = _stored(gen, k, n, kind, groups)
+            for act in fused.ACTS:
+                same(x, w, sw, sa, kind, act, (m, k, n, groups))
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for m in (8, 256):                   # the fewest and the most K ranges
+        for _, k, n in LAYER:
+            x = torch.randn((m, k), generator=gen, device="cuda") * 2
+            sa = (x.abs().amax() / 127).reshape(())
+            for kind, act in (("int4_packed", "qdq"), ("fp8", "none"),
+                              ("int8", "quant")):
+                w, sw = _stored(gen, k, n, kind)
+                for splits in (_fewest_splits(m, k, kind), fused.MAX_SPLITS):
+                    plan = fused.plan_fused_dequant(m, n, k, 1, kind, sms,
+                                                    splits)
+                    same(x, w, sw, sa, kind, act, (m, k, n), plan=plan)
+    for m, k, n in ((8, 896, 896), (16, 4864, 200), (5, 200, 72)):
+        x0 = torch.randn((m, k), generator=gen, device="cuda") * 2
+        sa = (x0.abs().amax() / 127).reshape(())
+        for kind in ("int8", "int4_packed", "fp8", "fp4_packed"):
+            w0, sw0 = _stored(gen, k, n, kind)
+            want = fused.fused_dequant_mm(x0, w0, sw0, sa, kind=kind,
+                                          act="qdq")
+            for ox, ow, os_ in ((1, 0, 0), (0, 1, 0), (0, 4, 0), (0, 0, 1),
+                                (3, 5, 2)):
+                got = same(_misaligned(x0, ox), _misaligned(w0, ow),
+                           _misaligned(sw0, os_), sa, kind, "qdq",
+                           f"{(m, k, n)} at +{(ox, ow, os_)}")
+                if not torch.equal(got, want):
+                    raise AssertionError(f"fused_dequant_mm {kind} at "
+                                         f"+{(ox, ow, os_)}: not the aligned "
+                                         f"result")
+    largest = {"int8": (torch.int8, -128), "int4": (torch.int8, -8),
+               "int4_packed": (torch.int8, -120), "fp8": (torch.uint8, 0x7F),
+               "fp4": (torch.uint8, 0xF), "fp4_packed": (torch.uint8, 0x77)}
+    x = torch.full((8, 4864), 3.0, device="cuda")
+    x[1::2] = -3.0
+    sa = torch.tensor(3.0 / 127, device="cuda")
+    for kind, (dtype, code) in largest.items():
+        rows = 2432 if kind in fused.PACKED_KINDS else 4864
+        w = torch.full((rows, 896), code, dtype=dtype, device="cuda")
+        sw = torch.full((1, 896), 0.5, device="cuda")
+        for act in fused.ACTS:
+            same(x, w, sw, sa, kind, act, "largest codes")
+    for m, k, n in ((8, 4864, 896), (8, 896, 896), (16, 896, 4864)):
+        x = torch.randn((m, k), generator=gen, device="cuda") * 2
+        sa = (x.abs().amax() / 127).reshape(())
+        w, sw = _stored(gen, k, n, "int4_packed")
+
+        def call():
+            return fused.fused_dequant_mm(x, w, sw, sa, kind="int4_packed",
+                                          act="qdq")
+        first = call()
+        outs = [call(), *_graph_twice(call)]
+        if not all(torch.equal(first, o) for o in outs):
+            raise AssertionError(f"fused_dequant_mm at {(m, k, n)}: launches "
+                                 f"and graph replays differ")
+        n_cmp += 3
+    torch.cuda.synchronize()
+    return n_cmp, err
+
+
+def _fewest_splits(m, k, kind):
+    """The fewest K ranges whose activation slices fit, at some width."""
+    from repro_torch.kernels import fused
+    rows = min(fused.ROW_LIMIT, 1 << (m - 1).bit_length())
+    return -(-k // max(fused.max_kc(rows, bn, kind)
+                       for bn in fused.DECODE_WIDTHS))
+
+
+def _time_fused_plans(gen):
+    """Per projection shape at M = 8 (int4_packed, qdq): the
+    graph-replayed time of one ``fused_dequant_mm`` launch in us,
+    averaged over N_LAYERS weights, under the default plan (listed with
+    its block count), planned for 1, 2 and 4 blocks per SM, and with K
+    split into the fewest ranges whose activation slice fits ("fewest":
+    unsplit where K fits); and at M = 256 (four weights per shape) the
+    default plan and the fewest ranges."""
+    from repro_torch.kernels import fused
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    m, kind = 8, "int4_packed"
+    x = {k: torch.randn((m, k), generator=gen, device="cuda") * 2
+         for k in (896, 4864)}
+    sa = {k: (v.abs().amax() / 127).reshape(()) for k, v in x.items()}
+    out = {}
+    for name, k, n in LAYER:
+        ws = [_stored(gen, k, n, kind) for _ in range(N_LAYERS)]
+        plans = {"default": fused.plan_fused_dequant(m, n, k, 1, kind, sms)}
+        plans.update({f"per_sm_{b}": fused.plan_fused_dequant(
+            m, n, k, 1, kind, sms, blocks_per_sm=b) for b in (1, 2, 4)})
+        plans["fewest"] = fused.plan_fused_dequant(
+            m, n, k, 1, kind, sms, splits=_fewest_splits(m, k, kind))
+        out[f"{m} {name}"] = {
+            label: graph_ms(lambda: [fused.fused_dequant_mm(
+                x[k], w, sw, sa[k], kind=kind, act="qdq", plan=p)
+                for w, sw in ws]) / len(ws) * 1e3
+            for label, p in plans.items()}
+        out[f"{m} {name}"]["plan"] = dict(
+            plans["default"]._asdict(), blocks=plans["default"].blocks(m, n))
+        out[f"{m} {name}"]["fewest_plan"] = dict(plans["fewest"]._asdict())
+    # the prefill-wave shape, 4 weights per shape: the default plan and
+    # the fewest K ranges
+    m = 256
+    xw = {k: torch.randn((m, k), generator=gen, device="cuda") * 2
+          for k in (896, 4864)}
+    saw = {k: (v.abs().amax() / 127).reshape(()) for k, v in xw.items()}
+    for name, k, n in LAYER:
+        ws = [_stored(gen, k, n, kind) for _ in range(4)]
+        plans = {"default": fused.plan_fused_dequant(m, n, k, 1, kind, sms),
+                 "fewest": fused.plan_fused_dequant(
+                     m, n, k, 1, kind, sms, _fewest_splits(m, k, kind))}
+        out[f"{m} {name}"] = {
+            label: graph_ms(lambda: [fused.fused_dequant_mm(
+                xw[k], w, sw, saw[k], kind=kind, act="qdq", plan=p)
+                for w, sw in ws]) / len(ws) * 1e3
+            for label, p in plans.items()}
+        out[f"{m} {name}"]["plan"] = dict(
+            plans["default"]._asdict(), blocks=plans["default"].blocks(m, n))
+    return out
+
+
 def _time_qmm_plans(gen):
     """Per projection shape at M in {8, 256}: the graph-replayed time of
     one ``qmm`` launch (its zeroing memset included), in us, averaged
@@ -466,6 +648,18 @@ def _time_kernels(gen, rates):
                      "operations": nops, "calls": N_LAYERS * len(LAYER),
                      "rows": m}
     out["qmm"]["library_rows"] = INT_MM_MIN_ROWS
+    out["fused_dequant_mm"]["host_us"] = _fused_host_us(
+        sweeps["int4_packed"], plans["fused_dequant_mm"][1])
+    # the prefill-wave shape, one layer: chunks of 16 register rows
+    wave4 = _Sweep(gen, 256, "int4_packed")
+    wave4.layers = wave4.layers[:1]
+    big = lambda: wave4.run(plans["fused_dequant_mm"][1](    # noqa: E731
+        wave4, "kernel"))
+    out["fused_dequant_mm_at_256_rows"] = {
+        "ms": median_ms(big), "graph_ms": graph_ms(big),
+        "plain_ms": median_ms(lambda: wave4.run(
+            plans["fused_dequant_mm"][1](wave4, "ref")), reps=5),
+        "calls": len(LAYER)}
     # the prefill-wave shape (8 slots x a 32-token chunk), one layer:
     # qmm and torch._int_mm in turns (kernel, library, library, kernel)
     wave = _Sweep(gen, 256, "int8")
@@ -479,6 +673,38 @@ def _time_kernels(gen, rates):
         "int_mm_ms": statistics.mean([turns[1], turns[2]]),
         "graph_ms": graph_ms(kernel)}
     return out
+
+
+def _fused_host_us(s, make):
+    """The host's time per ``fused_dequant_mm`` call (us, median of five
+    enqueues of the decode sweep, each drained before the next), beside
+    what the wrapper no longer does per call: enter the device's context
+    when it is current, and copy ``sa`` through ``torch.as_tensor``."""
+    call = make(s, "kernel")
+    calls = N_LAYERS * len(LAYER)
+
+    def per_call(fn):
+        times = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - t0) / calls * 1e6)
+        torch.cuda.synchronize()
+        return statistics.median(times)
+
+    def contexts():
+        for _ in range(calls):
+            with torch.cuda.device(0):
+                pass
+
+    def as_tensors():
+        for _ in range(calls):
+            torch.as_tensor(s.sa[896], dtype=torch.float32, device="cuda")
+
+    return {"call": per_call(lambda: s.run(call)),
+            "device_context": per_call(contexts),
+            "sa_as_tensor": per_call(as_tensors)}
 
 
 # torch._int_mm refuses 16 rows or fewer
@@ -632,9 +858,12 @@ def phase_kernels(rates):
     gen.manual_seed(1234)
     fidelity = get_policy("fidelity_fp16_ipu").default.ipu
     err, n_cmp = _check_kernels(gen)
+    n_fd, fd_err = _check_fused_dequant(gen)
+    err["fused_dequant_mm"] = max(err["fused_dequant_mm"], fd_err)
     n_qmm = _check_qmm(gen)
-    n_cmp += n_qmm + _check_mpmm(gen, fidelity)
+    n_cmp += n_fd + n_qmm + _check_mpmm(gen, fidelity)
     qmm_plans = _time_qmm_plans(gen)
+    fd_plans = _time_fused_plans(gen)
     err["mp_matmul"] = 0.0             # every comparison was bit-equal
     timing = _time_kernels(gen, rates)
     timing["mp_matmul"] = _time_mpmm(gen, rates, fidelity)
@@ -643,8 +872,9 @@ def phase_kernels(rates):
           f"{timing['mp_matmul']['exact_false_f32_matmul_ms']:.3f} ms over "
           f"the decode step's projections, mp_matmul "
           f"{timing['mp_matmul']['ms']:.3f} ms", flush=True)
-    log(2, comparisons=n_cmp, qmm_comparisons=n_qmm, max_abs_err=err,
-        timing=timing, qmm_plans_us=qmm_plans)
+    log(2, comparisons=n_cmp, qmm_comparisons=n_qmm,
+        fused_dequant_comparisons=n_fd, max_abs_err=err, timing=timing,
+        qmm_plans_us=qmm_plans, fused_dequant_plans_us=fd_plans)
     return err, timing
 
 

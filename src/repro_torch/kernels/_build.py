@@ -43,8 +43,9 @@ SIGNATURES = {
         "fused_qmm_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     },
     "fused_dequant": {
-        "fused_dequant_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                                 _P],
+        # x, w, sw, sa, out, M, N, K, G, kind, act, rows, bn, splits,
+        # kc, vec, stream
+        "fused_dequant_launch": [_P] * 5 + [_I] * 11 + [_P],
     },
     "mpmm": {
         "mpmm_launch": [_P, _P, _P] + [_I] * 10 + [_P],

@@ -91,6 +91,164 @@ def test_fused_dequant_matches_plain(cuda, kind, groups):
                                             act)).all()), (kind, act, m)
 
 
+def _fd_check(x, w, sw, sa, kind, act, plan=None):
+    """``fused_dequant_mm`` (under ``plan``) within 2 gamma_K of its
+    plain version; returns the kernel's output."""
+    got = tfused.fused_dequant_mm(x, w, sw, sa, kind=kind, act=act,
+                                  plan=plan)
+    want = tref.fused_dequant_mm_ref(x, w, sw, sa, kind=kind, act=act)
+    diff = (got.double() - want.double()).abs()
+    assert bool((diff <= _sum_bound(x, w, sw, sa, kind, act)).all()), (
+        kind, act, tuple(x.shape), tuple(w.shape), plan)
+    return got
+
+
+def _fd_plan(x, w, sw, kind, **kw):
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    m, k = x.shape
+    return tfused.plan_fused_dequant(m, w.shape[1], k, sw.shape[0], kind,
+                                     sms, **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 2, 7, 8, 9, 15, 16, 17, 33])
+def test_fused_dequant_row_limit_edges(cuda, m):
+    """Both sides of the 16 register rows a block holds: every kind and
+    act, per-channel and G = 7 scales, the default plan, and K unsplit
+    (one range, no cluster)."""
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(50 + m)
+    k, n = 896, 200
+    x = torch.randn((m, k), generator=gen, device=cuda) * 2
+    sa = (x.abs().amax() / 127).reshape(())
+    for kind in tfused.KINDS:
+        for groups in (1, 7):
+            w, sw = _stored(gen, k, n, kind, groups, cuda)
+            plan = _fd_plan(x, w, sw, kind)
+            assert plan.rows == min(16, 1 << (m - 1).bit_length())
+            for act in tfused.ACTS:
+                _fd_check(x, w, sw, sa, kind, act)
+            _fd_check(x, w, sw, sa, kind, "qdq",
+                      _fd_plan(x, w, sw, kind, splits=1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offsets", [(1, 0, 0), (0, 1, 0), (0, 0, 1),
+                                     (3, 5, 2), (0, 4, 0), (0, 8, 0)],
+                         ids=str)
+def test_fused_dequant_at_misaligned_pointers(cuda, offsets):
+    """x, w and sw moved off their 16-byte boundaries (w by 1, 4 and 8
+    bytes: the byte, 4-byte and again 4-byte copy widths), and N = 200,
+    a row stride of 8 bytes mod 16; the result is the aligned one, bit
+    for bit."""
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(60)
+    for kind in ("int8", "int4_packed", "fp8", "fp4_packed"):
+        for m, k, n in ((8, 896, 128), (5, 200, 72), (16, 4864, 200)):
+            w0, sw0 = _stored(gen, k, n, kind, 1, cuda)
+            x0 = torch.randn((m, k), generator=gen, device=cuda) * 2
+            x = _misaligned(x0, offsets[0])
+            w = _misaligned(w0, offsets[1])
+            sw = _misaligned(sw0, offsets[2])
+            sa = (x0.abs().amax() / 127).reshape(())
+            for act in ("none", "qdq"):
+                got = _fd_check(x, w, sw, sa, kind, act)
+                # the copy width does not change the order of the sums
+                assert torch.equal(got, tfused.fused_dequant_mm(
+                    x0, w0, sw0, sa, kind=kind, act=act))
+
+
+@pytest.mark.cuda
+def test_fused_dequant_repeats_and_replays_bit_identical(cuda):
+    """Split-K adds partials in split order: two launches give the same
+    bits, and so do a CUDA-graph replay and a replay twice in a row,
+    with one launch counted per call and none per replay."""
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(61)
+    x = torch.randn((8, 4864), generator=gen, device=cuda) * 2
+    w, sw = _stored(gen, 4864, 896, "int4_packed", 1, cuda)
+    sa = (x.abs().amax() / 127).reshape(())
+    assert _fd_plan(x, w, sw, "int4_packed").splits > 1
+
+    def call():
+        return tops.fused_dequant_matmul(x, w, sw, sa, kind="int4_packed",
+                                         act="qdq")
+    before = tops.launch_counts()["fused_dequant_mm"]
+    first = _fd_check(x, w, sw, sa, "int4_packed", "qdq")
+    assert torch.equal(call(), first)
+    assert tops.launch_counts()["fused_dequant_mm"] == before + 2
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        call()                                  # warm up off the default
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = [call() for _ in range(3)]       # one workspace, reused
+    counted = tops.launch_counts()["fused_dequant_mm"]
+    graph.replay()
+    torch.cuda.synchronize()
+    for out in outs:
+        assert torch.equal(out, first)
+    outs[0].zero_()
+    graph.replay()
+    graph.replay()
+    torch.cuda.synchronize()
+    for out in outs:
+        assert torch.equal(out, first)
+    assert torch.equal(call(), first)           # eager after the replays
+    assert tops.launch_counts()["fused_dequant_mm"] == counted + 1
+
+
+@pytest.mark.cuda
+def test_fused_dequant_forced_plans_and_refusals(cuda):
+    """Every block width and several split counts agree with the plain
+    version; a plan that does not cover K, takes more ranges than a
+    cluster or whose slice does not fit is refused before any launch."""
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(62)
+    x = torch.randn((8, 896), generator=gen, device=cuda) * 2
+    w, sw = _stored(gen, 896, 300, "fp4_packed", 4, cuda)
+    sa = (x.abs().amax() / 127).reshape(())
+    for bn in tfused.DECODE_WIDTHS:
+        for splits, kc in ((1, 896), (3, 320), (7, 128), (5, 192)):
+            _fd_check(x, w, sw, sa, "fp4_packed", "quant",
+                      tfused.FusedPlan(8, bn, splits, kc))
+    before = tops.launch_counts()["fused_dequant_mm"]
+    for plan in (tfused.FusedPlan(8, 32, 2, 320),    # does not cover K
+                 tfused.FusedPlan(8, 32, 4, 320),    # an empty range
+                 tfused.FusedPlan(3, 32, 1, 896),    # no such row count
+                 tfused.FusedPlan(8, 32, 28, 32),    # more than a cluster
+                 tfused.FusedPlan(8, 48, 1, 896),    # no such width
+                 tfused.FusedPlan(8, 32, 1, 900),    # not a multiple of 32
+                 tfused.FusedPlan(16, 32, 1, 2560)):  # slice too large
+        with pytest.raises(RuntimeError, match="cudaError_t"):
+            tfused.fused_dequant_mm(x, w, sw, sa, kind="fp4_packed",
+                                    act="quant", plan=plan)
+    assert tops.launch_counts()["fused_dequant_mm"] == before
+
+
+@pytest.mark.cuda
+def test_fused_dequant_largest_codes(cuda):
+    """Every weight at its kind's largest code (int8 -128, int4 -8, both
+    packed nibbles -8, e4m3 0x7F = 480, e2m1 0xF = -6, both packed
+    nibbles 6) and acts at the ends of the int8 grid, at K = 4864."""
+    m, k, n = 8, 4864, 136
+    x = torch.full((m, k), 3.0, device=cuda)
+    x[1::2] = -3.0
+    sa = torch.tensor(3.0 / 127, device=cuda)
+    codes = {"int8": (torch.int8, -128), "int4": (torch.int8, -8),
+             "int4_packed": (torch.int8, -120),     # nibbles -8, -8
+             "fp8": (torch.uint8, 0x7F), "fp4": (torch.uint8, 0xF),
+             "fp4_packed": (torch.uint8, 0x77)}
+    for kind, (dtype, code) in codes.items():
+        rows = k // 2 if kind in tfused.PACKED_KINDS else k
+        w = torch.full((rows, n), code, dtype=dtype, device=cuda)
+        sw = torch.full((1, n), 0.5, device=cuda)
+        for act in tfused.ACTS:
+            _fd_check(x, w, sw, sa, kind, act)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("kind", INT_KINDS)
 def test_exact_kernels_equal_plain(cuda, kind):
