@@ -13,23 +13,28 @@ printing one line that starts with ``phase``:
    shape of qwen2-0.5b, a ragged shape, a per-group case):
    ``fused_dequant_mm`` within 2 gamma_K (|x| @ |w|) elementwise (see
    ``csrc/fused_dequant.cu``), the three exact kernels ``torch.equal``,
-   ``mp_matmul`` bit-equal in three IPU configs, both modes and both
-   roundings, on "wide" f16 operands with zeros, subnormals and an
-   all-zero K-group; ``qmm`` (the tensor-core kernel) also at M in
-   {1, 8, 16, 17, 256}, ragged shapes, misaligned pointers, all -128
+   ``mp_matmul`` bit-equal in three IPU configs and groups of 3, 40
+   and 64, both modes and both roundings, on "wide" f16 operands with
+   zeros, subnormals and an all-zero K-group, on group maxima that rise
+   (every group a record) and fall, under forced launch plans, at
+   misaligned pointers and ragged M, N and K, and over repeated
+   launches and CUDA-graph replays; ``qmm`` (the tensor-core kernel)
+   also at M in {1, 8, 16, 17, 256}, ragged shapes, misaligned pointers, all -128
    operands and a forced split of 1; ``fused_dequant_mm`` also at M in
    {1, 16, 17}, G = 7 and 38, misaligned pointers, each kind's largest
-   codes, the fewest and the most K ranges, and bit-identical over
-   repeated launches and CUDA-graph replays; then each kernel's time
+   codes, the fewest and the most K ranges, K deeper than one launch
+   takes, and bit-identical over repeated launches and CUDA-graph
+   replays; then each kernel's time
    over one decode step's projections (24 layers x 7 projections at
    M = 8), eager and replayed from a CUDA graph, beside its plain
    version's (for ``mp_matmul``: one layer's seven projections), the
    card's least time for the same bytes and operations, and a library
    call where one computes the same function (``torch._int_mm`` for
    ``qmm``, at M = 8 on rows padded to 32 and at 256 rows in turns with
-   the kernel); ``fused_dequant_mm`` also at 256 rows over one layer and
-   per call on the host; and ``qmm``'s and ``fused_dequant_mm``'s launch
-   plans compared per projection shape;
+   the kernel); ``fused_dequant_mm`` and ``mp_matmul`` also at 256 rows
+   over one layer and per call on the host; and the launch plans of
+   ``qmm``, ``fused_dequant_mm`` and ``mp_matmul`` compared per
+   projection shape;
 3. full-width qwen2-0.5b (24 layers, d_model 896, vocab 151936, random
    weights from a seed) served by the port's ``ServingEngine`` under
    ``int4_serving`` with calibrated act scales and the fused executors:
@@ -383,6 +388,7 @@ def _check_fused_dequant(gen):
     G = 7 at M = 16; the fewest and the most K ranges at M in {8, 256}
     for three kind/act pairs; misaligned x, w and sw pointers (bit-equal
     to the aligned result too); each kind's largest codes at K = 4864;
+    K deeper than one launch takes (18464 at M = 16, 36896 at M = 8);
     and two launches, a graph replay and two replays in a row
     ``torch.equal`` at split plans. Returns (comparisons, max |kernel -
     plain|)."""
@@ -445,6 +451,15 @@ def _check_fused_dequant(gen):
         sw = torch.full((1, 896), 0.5, device="cuda")
         for act in fused.ACTS:
             same(x, w, sw, sa, kind, act, "largest codes")
+    # K deeper than one launch takes: a launch per K slice (one scale
+    # group past the edge at 16 and at 8 register rows)
+    for m, k, groups in ((16, 18464, 1), (16, 18464, 577), (8, 36896, 1)):
+        x = torch.randn((m, k), generator=gen, device="cuda") * 2
+        sa = (x.abs().amax() / 127).reshape(())
+        for kind in ("int8", "int4_packed", "fp4_packed"):
+            w, sw = _stored(gen, k, 64, kind, groups)
+            for act in fused.ACTS:
+                same(x, w, sw, sa, kind, act, f"deep K {(m, k, groups)}")
     for m, k, n in ((8, 4864, 896), (8, 896, 896), (16, 896, 4864)):
         x = torch.randn((m, k), generator=gen, device="cuda") * 2
         sa = (x.abs().amax() / 127).reshape(())
@@ -751,60 +766,225 @@ def _as_bits(y):
     return y.view(torch.int16 if y.element_size() == 2 else torch.int32)
 
 
+def _ordered_f16(gen, m, k, n, g, step):
+    """Operands whose group maxima rise (step 1) or fall (step -1): a's
+    exponent constant in a K-group and one apart from one group to the
+    next, clamped to f16's normal range, b's exponent 0. Rising, every
+    group of every output is a record (the fold's worst case) up to the
+    29th; falling, only the first is."""
+    e = (-14 if step > 0 else 15) + step * (torch.arange(k, device="cuda")
+                                            // g)
+    e = e.clamp(-14, 15).expand(m, k)
+
+    def unit(shape):
+        # [1, 1.5) in f16 keeps exponent 0; a random sign
+        sign = torch.randint(0, 2, shape, generator=gen, device="cuda")
+        return (torch.rand(shape, generator=gen, device="cuda") * 0.5 + 1
+                ) * (sign * 2 - 1)
+    a = torch.ldexp(unit((m, k)), e)
+    return a.to(torch.float16).contiguous(), unit((k, n)).to(
+        torch.float16).contiguous()
+
+
+def _mp_same(a, b, c, fused, what, plan=None):
+    """``mp_matmul`` bit-equal to its plain version; returns its output."""
+    from repro_torch.kernels import mpmm, ref
+    got = mpmm.mp_matmul(a, b, c, fused=fused, plan=plan)
+    want = ref.mp_matmul_blocked_ref(a, b, c, fused=fused)
+    if got.dtype != want.dtype or not torch.equal(_as_bits(got),
+                                                  _as_bits(want)):
+        raise AssertionError(
+            f"mp_matmul n={c.n} w={c.w} {c.accum} {c.rounding} "
+            f"fused={fused} {what} {plan}: not bit-equal to its plain "
+            f"version")
+    return got
+
+
 def _check_mpmm(gen, cfg):
-    """``mp_matmul`` against its plain version (``backend="ref"``), bit
-    for bit: the fidelity config ``cfg`` at M in {8, 256} x the seven
-    projection shapes and a ragged shape; the other two test configs of
-    tests/test_kernels.py (f16 output included); the fused mode once per
-    config; floor rounding once."""
+    """``mp_matmul`` against its plain version, bit for bit: the
+    fidelity config ``cfg`` at M in {8, 256} x the seven projection
+    shapes and ragged M, N and K; the other two test configs of
+    tests/test_kernels.py (f16 output included) and groups of 3, 40 and
+    64 (a group staged in two chunks); the fused mode and floor
+    rounding; ascending (every group a record) and descending group
+    maxima; forced plans (one K range, the most ranges, the narrowest
+    and the widest blocks); misaligned a and b pointers (bit-equal to
+    the aligned result too); and two launches and two CUDA-graph
+    replays bit-identical."""
     from repro_torch.core.ipu import IPUConfig
-    from repro_torch.kernels import ops
+    from repro_torch.kernels import mpmm
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     other = [IPUConfig(n=16, w=28, accum="fp32"),
              IPUConfig(n=8, w=12, accum="fp16")]
+    odd = [IPUConfig(n=3, w=16, accum="fp32"),
+           IPUConfig(n=40, w=16, accum="fp32", rounding="floor"),
+           IPUConfig(n=64, w=20, accum="bf16", sw_precision=12)]
+    floor = dataclasses.replace(cfg, rounding="floor")
     cases = [(cfg, False, (m, k, n)) for m in (8, 256) for _, k, n in LAYER]
-    cases += [(cfg, False, (5, 200, 72))]
-    cases += [(c, False, (8, 896, 896)) for c in other]
-    cases += [(c, True, (8, 896, 128)) for c in [cfg] + other]
-    cases += [(dataclasses.replace(cfg, rounding="floor"), False,
-               (8, 896, 128))]
+    cases += [(cfg, False, s) for s in ((5, 200, 72), (9, 77, 33),
+                                        (1, 7, 1), (3, 1003, 129),
+                                        (17, 14336, 40))]
+    cases += [(c, False, (8, 896, 896)) for c in other + odd]
+    cases += [(c, True, (8, 896, 128)) for c in [cfg, floor] + other + odd]
+    cases += [(floor, False, (8, 896, 128)), (floor, False, (8, 4864, 896))]
+    n_cmp = 0
     for c, fused, (m, k, n) in cases:
         a, b = _mp_operands(gen, m, k, n)
-        got = ops.mp_matmul(a, b, c, fused=fused)
-        want = ops.mp_matmul(a, b, c, fused=fused, backend="ref")
-        if got.dtype != want.dtype or not torch.equal(_as_bits(got),
-                                                      _as_bits(want)):
-            raise AssertionError(
-                f"mp_matmul n={c.n} w={c.w} {c.accum} {c.rounding} "
-                f"fused={fused} at {(m, k, n)}: not bit-equal to its "
-                f"plain version")
+        _mp_same(a, b, c, fused, (m, k, n))
+        n_cmp += 1
+    for c in (cfg, floor, other[1]):
+        for step in (1, -1):
+            for m, k, n in ((8, 4864, 896), (8, 29 * c.n, 4864),
+                            (3, 300, 70)):
+                a, b = _ordered_f16(gen, m, k, n, c.n, step)
+                for fused in (False, True):
+                    _mp_same(a, b, c, fused, f"step {step} {(m, k, n)}")
+                    n_cmp += 1
+    for m, k, n in ((8, 4864, 896), (8, 896, 4864), (256, 896, 128),
+                    (5, 200, 72)):
+        a, b = _mp_operands(gen, m, k, n)
+        for force in ({"splits": 1}, {"splits": mpmm.MAX_SPLITS},
+                      {"bn": 32}, {"bn": 256}):
+            plan = mpmm.plan_mpmm(m, n, k, cfg.n, sms, **force)
+            _mp_same(a, b, cfg, False, (m, k, n), plan=plan)
+            n_cmp += 1
+    for m, k, n in ((8, 896, 896), (5, 200, 72), (8, 4864, 130)):
+        a0, b0 = _mp_operands(gen, m, k, n)
+        want = mpmm.mp_matmul(a0, b0, cfg)
+        for oa, ob in ((1, 0), (0, 1), (0, 2), (3, 5)):
+            got = _mp_same(_misaligned(a0, oa), _misaligned(b0, ob), cfg,
+                           False, f"{(m, k, n)} at +{(oa, ob)}")
+            if not torch.equal(_as_bits(got), _as_bits(want)):
+                raise AssertionError(f"mp_matmul at +{(oa, ob)}: not the "
+                                     f"aligned result")
+            n_cmp += 1
+    for m, k, n in ((8, 4864, 896), (8, 896, 4864), (256, 896, 896)):
+        a, b = _mp_operands(gen, m, k, n)
+        first = mpmm.mp_matmul(a, b, cfg)
+        outs = [mpmm.mp_matmul(a, b, cfg),
+                *_graph_twice(lambda: mpmm.mp_matmul(a, b, cfg))]
+        if not all(torch.equal(_as_bits(first), _as_bits(o)) for o in outs):
+            raise AssertionError(f"mp_matmul at {(m, k, n)}: launches and "
+                                 f"graph replays differ")
+        n_cmp += 3
     torch.cuda.synchronize()
-    return len(cases)
+    return n_cmp
 
 
 def _active_products(x16, w16, cfg):
     """Products of x16 @ w16 that the EHU keeps (alignment shift within
     cfg.mask_threshold of the group's largest product exponent): the
-    data-dependent part of the kernel's work, counted on the card."""
+    data-dependent part of the kernel's work, counted on the card, eight
+    rows at a time."""
     from repro_torch.core import fp16 as fpmod
     _, ea, _ = fpmod.decompose(x16, fpmod.FP16)
     _, eb, _ = fpmod.decompose(w16, fpmod.FP16)
     m, k = ea.shape
     g = cfg.n
-    ea = ea.reshape(m, k // g, g)
     eb = eb.reshape(k // g, g, -1)
-    c = ea[:, :, :, None] + eb[None]                # (m, G, g, n)
-    shift = c.amax(dim=2, keepdim=True) - c
-    return int((shift <= cfg.mask_threshold).sum())
+    total = 0
+    for r in range(0, m, 8):
+        c = ea[r:r + 8].reshape(-1, k // g, g)[:, :, :, None] + eb[None]
+        shift = c.amax(dim=2, keepdim=True) - c      # (rows, G, g, n)
+        total += int((shift <= cfg.mask_threshold).sum())
+    return total
+
+
+def _mp_bound(layers, x, cfg, rates):
+    """The least time for ``mp_matmul`` over ``layers`` with activations
+    ``x``: f16 weights and activations read once, f32 outputs written
+    once; operations: per product the EHU's add, max, subtract and
+    compare (4), and per product it keeps 9 plane products of a
+    multiply, a shift and an add (27), on the int32 CUDA cores."""
+    nbytes = products = active = 0
+    for layer in layers:
+        for (_, k, n), w in zip(LAYER, layer):
+            m = x[k].shape[0]
+            nbytes += w.numel() * 2 + m * k * 2 + m * n * 4
+            products += m * k * n
+            active += _active_products(x[k], w, cfg)
+    nops = 4 * products + 27 * active
+    t_bytes = nbytes / rates["bytes_per_s"] * 1e3
+    t_ops = nops / rates["int32"] * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": nbytes, "operations": nops, "products": products,
+            "active_products": active}
+
+
+def _mp_plans_us(layers, x, cfg, sms, force=()):
+    """Per projection shape (wq, wk, w_gate, w_down): the graph-replayed
+    time of one ``mp_matmul`` launch in us, averaged over ``layers``,
+    under the default plan (listed with its block count and rounds) and
+    under each forced plan of ``force``."""
+    from repro_torch.kernels import mpmm
+    out = {}
+    for i, (name, k, n) in enumerate(LAYER):
+        if name not in ("wq", "wk", "w_gate", "w_down"):
+            continue
+        ws = [layer[i] for layer in layers]
+        m = x[k].shape[0]
+        plans = {"default": mpmm.plan_mpmm(m, n, k, cfg.n, sms)}
+        for f in force:
+            plans["_".join(f"{a}{b}" for a, b in f.items())] = \
+                mpmm.plan_mpmm(m, n, k, cfg.n, sms, **f)
+        row = {label: graph_ms(lambda: [mpmm.mp_matmul(
+            x[k], w, cfg, plan=p) for w in ws], reps=5) / len(ws) * 1e3
+            for label, p in plans.items()}
+        d = plans["default"]
+        row["plan"] = dict(d._asdict(), blocks=d.blocks(m, n),
+                           rounds=d.rounds(k, cfg.n))
+        out[f"{m} {name}"] = row
+    return out
+
+
+def _mp_host_us(layers, x, cfg):
+    """The host's time per ``mp_matmul`` call (us, median of five
+    enqueues of the decode sweep, each drained before the next), beside
+    what the wrapper no longer does per call: look the library up and
+    enter the device's context when it is current."""
+    from repro_torch.kernels import _build, mpmm
+    calls = sum(len(layer) for layer in layers)
+
+    def per_call(fn):
+        times = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - t0) / calls * 1e6)
+        torch.cuda.synchronize()
+        return statistics.median(times)
+
+    def sweep():
+        for layer in layers:
+            for (_, k, _), w in zip(LAYER, layer):
+                mpmm.mp_matmul(x[k], w, cfg)
+
+    def lookups():
+        for _ in range(calls):
+            _build.library("mpmm")
+
+    def contexts():
+        for _ in range(calls):
+            with torch.cuda.device(0):
+                pass
+
+    return {"call": per_call(sweep), "library_lookup": per_call(lookups),
+            "device_context": per_call(contexts)}
 
 
 def _time_mpmm(gen, rates, cfg):
     """``mp_matmul`` over one decode step's 168 projections at M = 8 (f16
-    weights, each layer its own), its plain version over one layer's
-    seven projections, the bound, and the exact=False route's f32 matmul
-    on the same f16 operands (context: the price of bit-exact emulation,
-    not a yardstick)."""
+    weights, each layer its own), eager and graph-replayed, its plain
+    version over one layer's seven projections, the bound, the
+    exact=False route's f32 matmul on the same f16 operands (context:
+    the price of bit-exact emulation, not a yardstick), per launch and
+    plan, per call on the host; and one layer at 256 rows (the prefill
+    wave) with its own bound and plans."""
     from repro_torch.kernels import ops
     from repro_torch.layers.mplinear import _dot_f32
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     m = 8
     layers = [[(torch.randn((k, n), generator=gen, device="cuda")
                 / k ** 0.5).to(torch.float16) for _, k, n in LAYER]
@@ -812,10 +992,10 @@ def _time_mpmm(gen, rates, cfg):
     x = {k: (torch.randn((m, k), generator=gen, device="cuda") * 2
              ).to(torch.float16) for k in (896, 4864)}
 
-    def sweep(call, depth=N_LAYERS):
+    def sweep(call, depth=N_LAYERS, xs=x):
         for layer in layers[:depth]:
             for (_, k, _), w in zip(LAYER, layer):
-                call(x[k], w)
+                call(xs[k], w)
 
     ms = median_ms(lambda: sweep(lambda a, w: ops.mp_matmul(a, w, cfg)))
     g_ms = graph_ms(lambda: sweep(lambda a, w: ops.mp_matmul(a, w, cfg)),
@@ -827,29 +1007,27 @@ def _time_mpmm(gen, rates, cfg):
         reps=3, warm=1)
     dense_ms = median_ms(lambda: sweep(
         lambda a, w: _dot_f32(a, w, torch.float16)))
-    # bound: f16 weights and activations read once, f32 outputs written
-    # once; operations: per product the EHU's add, max, subtract and
-    # compare (4), and per product it keeps 9 plane products of a
-    # multiply, a shift and an add (27), on the int32 CUDA cores
-    nbytes = products = active = 0
-    for layer in layers:
-        for (_, k, n), w in zip(LAYER, layer):
-            nbytes += w.numel() * 2 + m * k * 2 + m * n * 4
-            products += m * k * n
-            active += _active_products(x[k], w, cfg)
-    nops = 4 * products + 27 * active
-    t_bytes = nbytes / rates["bytes_per_s"] * 1e3
-    t_ops = nops / rates["int32"] * 1e3
-    return {"ms": ms, "graph_ms": g_ms, "plain_ms": plain_layer_ms,
-            "plain_scope": "one layer (7 projections), 3 reps",
-            "ms_one_layer": layer_ms,
-            "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": None, "bytes": nbytes, "operations": nops,
-            "products": products, "active_products": active,
-            "int32_ops_per_s": rates["int32"],
-            "exact_false_f32_matmul_ms": dense_ms,
-            "calls": N_LAYERS * len(LAYER), "rows": m}
+    out = {"ms": ms, "graph_ms": g_ms, "plain_ms": plain_layer_ms,
+           "plain_scope": "one layer (7 projections), 3 reps",
+           "ms_one_layer": layer_ms, "library_ms": None,
+           **_mp_bound(layers, x, cfg, rates),
+           "int32_ops_per_s": rates["int32"],
+           "exact_false_f32_matmul_ms": dense_ms,
+           "calls": N_LAYERS * len(LAYER), "rows": m}
+    out["plans_us"] = _mp_plans_us(layers, x, cfg, sms, force=(
+        {"splits": 1}, {"splits": 8}, {"bn": 32}))
+    out["host_us"] = _mp_host_us(layers, x, cfg)
+    # the prefill wave: one layer at 256 rows
+    xw = {k: (torch.randn((256, k), generator=gen, device="cuda") * 2
+              ).to(torch.float16) for k in (896, 4864)}
+    wave = lambda: sweep(                                 # noqa: E731
+        lambda a, w: ops.mp_matmul(a, w, cfg), depth=1, xs=xw)
+    out["at_256_rows"] = {
+        "ms": median_ms(wave, reps=5), "graph_ms": graph_ms(wave, reps=5),
+        **_mp_bound(layers[:1], xw, cfg, rates), "calls": len(LAYER),
+        "plans_us": _mp_plans_us(layers[:1], xw, cfg, sms,
+                                 force=({"splits": 1},))}
+    return out
 
 
 def phase_kernels(rates):

@@ -48,7 +48,9 @@ SIGNATURES = {
         "fused_dequant_launch": [_P] * 5 + [_I] * 11 + [_P],
     },
     "mpmm": {
-        "mpmm_launch": [_P, _P, _P] + [_I] * 10 + [_P],
+        # a, b, out, M, N, K, g, w, thresh, fused, floor, exp_bits,
+        # mant_bits, rows, bn, splits, vec, stream
+        "mpmm_launch": [_P, _P, _P] + [_I] * 14 + [_P],
     },
 }
 

@@ -17,6 +17,7 @@ projection. ``LAUNCHES`` counts kernel launches, and nothing else.
 from __future__ import annotations
 
 import functools
+import math
 from typing import List, NamedTuple, Optional, Tuple
 
 import torch
@@ -134,6 +135,41 @@ def plan_fused_dequant(m: int, n: int, k: int, groups: int, kind: str,
     return min(plans, key=lambda p: p.blocks(m, n))
 
 
+def max_launch_k(rows: int, kind: str) -> int:
+    """The deepest K one launch takes at ``rows`` register rows:
+    ``MAX_SPLITS`` K ranges, each within its activation slice at the
+    block width that allows the longest."""
+    return MAX_SPLITS * max(max_kc(rows, bn, kind) for bn in DECODE_WIDTHS)
+
+
+@functools.lru_cache(maxsize=4096)
+def k_slices(m: int, k: int, groups: int, kind: str) -> List[Tuple[int, int]]:
+    """Consecutive K slices [k0, k1) that ``fused_dequant_mm`` launches
+    its kernel on, one launch each, their f32 partials added in slice
+    order: one slice where one launch takes K (``max_launch_k``), else
+    the fewest slices of equal length that each fit it. With per-group
+    scales every bound falls on a scale-group boundary (K / ``groups``
+    k-rows a group), so a slice takes its own rows of the scales; for
+    the packed kinds every bound is even, so a slice takes whole stored
+    rows."""
+    if min(m, groups) < 1 or k < 0 or k % groups or kind not in KINDS:
+        raise ValueError(f"no K slices for m={m} k={k} groups={groups} "
+                         f"kind={kind!r}")
+    rows = next((r for r in DECODE_ROWS if r >= m), ROW_LIMIT)
+    cap = max_launch_k(rows, kind)
+    if k <= cap:
+        return [(0, k)]
+    # per-channel scales (one group) hold for any slice
+    step = math.lcm(k // groups if groups > 1 else 1,
+                    2 if kind in PACKED_KINDS else 1)
+    if step > cap:
+        raise ValueError(f"a scale group of {k // groups} k-rows is deeper "
+                         f"than one launch takes ({cap})")
+    count = -(-k // (cap // step * step))
+    per = -(-k // (step * count)) * step
+    return [(lo, min(k, lo + per)) for lo in range(0, k, per)]
+
+
 @functools.lru_cache(maxsize=None)
 def _fused_dequant_library():
     """``csrc/fused_dequant.cu``'s library, looked up once (built at the
@@ -206,7 +242,9 @@ def fused_dequant_mm(x: torch.Tensor, w: torch.Tensor, sw: torch.Tensor,
     'none' (ignored), 'qdq' (fake-quant grid) or 'quant' (int-valued
     acts, ``sa`` folded in at the end). ``plan`` replaces the launch
     plan (default :func:`plan_fused_dequant`); the kernel refuses one
-    that does not cover K."""
+    that does not cover K. Without a plan, a K deeper than one launch
+    takes runs as one launch per :func:`k_slices` slice, the f32
+    partials added in slice order."""
     if kind not in KINDS:
         raise ValueError(f"unknown storage kind {kind!r}")
     if act not in ACTS:
@@ -233,9 +271,33 @@ def fused_dequant_mm(x: torch.Tensor, w: torch.Tensor, sw: torch.Tensor,
     if on_cpu(*operands):
         return ref.fused_dequant_mm_ref(x, w, sw, sa, kind=kind, act=act)
     sw = sw.contiguous()
+    if m == 0 or n == 0:              # an empty grid is not a launch
+        return torch.empty((m, n), dtype=torch.float32, device=x.device)
+    if plan is not None:
+        return _launch_fused_dequant(x, w, sw, sa, kind, act, plan)
+    slices = k_slices(m, k, groups, kind)
+    if len(slices) == 1:
+        return _launch_fused_dequant(x, w, sw, sa, kind, act, None)
+    # deeper K than one launch takes: a launch per slice, the partials
+    # added in slice order
+    pk = 2 if kind in PACKED_KINDS else 1
+    gs = k // groups
+    out = None
+    for k0, k1 in slices:
+        part = _launch_fused_dequant(
+            x[:, k0:k1].contiguous(), w[k0 // pk:k1 // pk],
+            sw if groups == 1 else sw[k0 // gs:k1 // gs], sa, kind, act,
+            None)
+        out = part if out is None else out.add_(part)
+    return out
+
+
+def _launch_fused_dequant(x, w, sw, sa, kind, act, plan):
+    """One launch of ``csrc/fused_dequant.cu`` on checked CUDA operands."""
+    m, k = x.shape
+    n = w.shape[1]
+    groups = sw.shape[0]
     out = torch.empty((m, n), dtype=torch.float32, device=x.device)
-    if m == 0 or n == 0:
-        return out                    # an empty grid is not a launch
     if plan is None:
         plan = plan_fused_dequant(m, n, k, groups, kind,
                                   _sm_count(x.device))

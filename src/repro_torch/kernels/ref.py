@@ -146,6 +146,29 @@ def mp_matmul_blocked_ref(a: torch.Tensor, b: torch.Tensor,
     The nine updates of a group are applied at once
     (:func:`_group_update`), which gives the reference's value.
     """
+    m, n = a.shape[0], b.shape[1]
+    zero = torch.zeros((m, n), dtype=torch.int32, device=a.device)
+    acc = fx.FX(zero, zero)
+    exp_acc = torch.full((m, n), NEG_INF_EXP, dtype=torch.int32,
+                         device=a.device)
+    for mx, s_tree in _group_sums(a, b, cfg, fused):
+        if fused:
+            w_f = min(cfg.w, 26)
+            acc, exp_acc = accumulate(acc, exp_acc, s_tree[0], mx,
+                                      1 + w_f - cfg.w, torch.zeros_like(mx),
+                                      cfg)
+        else:
+            acc, exp_acc = _group_update(acc, exp_acc, s_tree, mx, cfg)
+    return fx.round_to_fp(acc, exp_acc, cfg.accum_format)
+
+
+def _group_sums(a: torch.Tensor, b: torch.Tensor, cfg: IPUConfig,
+                fused: bool):
+    """Per K-group, in K order: the EHU's group max ``mx`` (m, n) and the
+    adder-tree sums (9, m, n), ``[3*i + j]`` for plane pair (i, j), or
+    (1, m, n) for the fused plane. K is zero-padded to a multiple of g
+    (value-neutral: a padded product has exponent -28, the least there
+    is, and magnitude 0)."""
     a = a.to(torch.float16)
     b = b.to(torch.float16)
     m, k = a.shape
@@ -167,10 +190,6 @@ def mp_matmul_blocked_ref(a: torch.Tensor, b: torch.Tensor,
         pa = torch.stack(nibble.fp16_planes(sa, ma)).reshape(3, m, groups, g)
         pb = torch.stack(nibble.fp16_planes(sb, mb)).reshape(3, groups, g, n)
     w_f = min(cfg.w, 26)
-    zero = torch.zeros((m, n), dtype=torch.int32, device=a.device)
-    acc = fx.FX(zero, zero)
-    exp_acc = torch.full((m, n), NEG_INF_EXP, dtype=torch.int32,
-                         device=a.device)
     for gi in range(groups):
         c = ea[:, gi, :, None] + eb[gi][None]            # (m, g, n)
         mx = torch.amax(c, dim=1)
@@ -182,18 +201,14 @@ def mp_matmul_blocked_ref(a: torch.Tensor, b: torch.Tensor,
             al = _shr_i32(d, torch.clamp(rs, min=0), cfg.rounding)
             al = al << torch.clamp(-rs, 0, max(w_f - 22, 0))
             al = torch.where(active, al, torch.zeros_like(al))
-            acc, exp_acc = accumulate(
-                acc, exp_acc, torch.sum(al, dim=1, dtype=torch.int32), mx,
-                1 + w_f - cfg.w, torch.zeros_like(mx), cfg)
+            yield mx, torch.sum(al, dim=1, dtype=torch.int32)[None]
             continue
         # plane i of A against plane j of B, all nine at once: (3, 3, m,
         # g, n) -> nine adder-tree sums (9, m, n)
         d = pa[:, None, :, gi, :, None] * pb[None, :, gi, None]
         al = _shr_i32(d << (cfg.w - 9), shift, cfg.rounding)
         al = torch.where(active, al, torch.zeros_like(al))
-        s_tree = torch.sum(al, dim=3, dtype=torch.int32).reshape(9, m, n)
-        acc, exp_acc = _group_update(acc, exp_acc, s_tree, mx, cfg)
-    return fx.round_to_fp(acc, exp_acc, cfg.accum_format)
+        yield mx, torch.sum(al, dim=3, dtype=torch.int32).reshape(9, m, n)
 
 
 def _group_update(acc: fx.FX, exp_acc: torch.Tensor, s_tree: torch.Tensor,
@@ -223,3 +238,97 @@ def mp_matmul_fused_ref(a: torch.Tensor, b: torch.Tensor,
                         cfg: IPUConfig = IPUConfig()) -> torch.Tensor:
     """Oracle alias for the fused mpmm mode."""
     return mp_matmul_blocked_ref(a, b, cfg, fused=True)
+
+
+def _shr64(v: torch.Tensor, s: torch.Tensor, rounding: str) -> torch.Tensor:
+    """The two limbs' right shift on int64 (s >= 0): trunc shifts |v| and
+    reapplies the sign, floor shifts arithmetically; 48 or more clears."""
+    big = s >= 48
+    s = torch.clamp(s, max=47)
+    if rounding == "floor":
+        return torch.where(big, torch.where(v < 0, -1, 0), v >> s)
+    r = v.abs() >> s
+    return torch.where(big, 0, torch.where(v < 0, -r, r))
+
+
+def _align64(s_tree: torch.Tensor, net: torch.Tensor,
+             rounding: str) -> torch.Tensor:
+    """``core.ipu.accumulate``'s aligned sum on int64: an exact left shift
+    (clamped at 23) where the net shift is negative, else ``_shr64``."""
+    v = s_tree.to(torch.int64)
+    left = v * (1 << torch.clamp(-net, 0, 23)).to(torch.int64)
+    right = _shr64(v, torch.clamp(net, 0, 1 << 20).to(torch.int64), rounding)
+    return torch.where(net < 0, left, right)
+
+
+def mp_matmul_rounds_ref(a: torch.Tensor, b: torch.Tensor,
+                         cfg: IPUConfig = IPUConfig(), *,
+                         fused: bool = False, plan) -> torch.Tensor:
+    """The decomposition ``csrc/mpmm.cu`` computes, in plain torch (tests
+    only; equal, bit for bit, to :func:`mp_matmul_blocked_ref`).
+
+    1. Prefix max: E_g = max(E_{g-1}, mx_g) from ``NEG_INF_EXP``.
+    2. Per-group contributions: c_g = sum over planes p of s_p aligned by
+       pre_p + (E_g - mx_g) - (33 - w), in int64; each depends on its
+       group and on E_g alone.
+    3. Record segments: a group is a record where mx_g > E_{g-1}, the
+       one place the accumulator truncates (by E_g - E_{g-1}).
+    4. Per-range lists: over the plan's rounds (``plan.ranges``), each
+       rank's range becomes a list of (shift, segment sum), a new entry
+       at each record (shift 0 for the part before the range's first
+       record); a segment's groups are summed last to first, to show
+       the order inside a segment does not matter.
+    5. The ordered fold: the ranges' lists in K order, one ``_shr64``
+       per record and one add per entry, then ``round_to_fp``.
+    """
+    m, n = a.shape[0], b.shape[1]
+    k = a.shape[1]
+    g = cfg.n
+    w_f = min(cfg.w, 26)
+    if fused:
+        pre = torch.tensor([1 + w_f - cfg.w])
+    else:
+        pre = torch.tensor([cfg.pre_shift(i, j)
+                            for i in range(3) for j in range(3)])
+    pre = pre.to(a.device)[:, None, None]
+    mxs, cs = [], []
+    e = torch.full((m, n), NEG_INF_EXP, dtype=torch.int32, device=a.device)
+    for mx, s_tree in _group_sums(a, b, cfg, fused):
+        e = torch.maximum(e, mx)                                   # 1
+        net = pre + (e - mx)[None] - (33 - cfg.w)
+        cs.append(torch.sum(_align64(s_tree, net, cfg.rounding), dim=0))
+        mxs.append(mx)                                             # 2
+    acc = torch.zeros((m, n), dtype=torch.int64, device=a.device)
+    e = torch.full((m, n), NEG_INF_EXP, dtype=torch.int32, device=a.device)
+    for ranks in plan.ranges(k, g):
+        for g0, g1 in ranks:
+            entries = []                                           # 4
+            for gi in range(g0, g1):
+                rec = mxs[gi] > e                                  # 3
+                shift = torch.where(rec, torch.clamp(mxs[gi] - e, max=63), 0)
+                e = torch.maximum(e, mxs[gi])
+                entries.append((shift, gi))
+            if not entries:
+                continue
+            # entry j: the shift of the record that opens it and the
+            # groups up to the next record, per output
+            seg = torch.stack([(s > 0).to(torch.int64) for s, _ in entries])
+            seg = torch.cumsum(seg, dim=0)                         # (L, m, n)
+            top = seg.shape[0] + 1
+            sums = torch.zeros((top, m, n), dtype=torch.int64,
+                               device=a.device)
+            shifts = torch.zeros((top, m, n), dtype=torch.int64,
+                                 device=a.device)
+            for j in reversed(range(len(entries))):
+                shift, gi = entries[j]
+                sums.scatter_add_(0, seg[j][None], cs[gi][None])
+                # one record opens each entry: its shift, 0 elsewhere
+                shifts.scatter_add_(0, seg[j][None],
+                                    shift.to(torch.int64)[None])
+            for j in range(top):                                   # 5
+                acc = torch.where(shifts[j] > 0,
+                                  _shr64(acc, shifts[j], cfg.rounding), acc)
+                acc = acc + sums[j]
+    hi = (acc >> fx.LIMB_BITS).to(torch.int32)
+    lo = (acc & fx.LIMB_MASK).to(torch.int32)
+    return fx.round_to_fp(fx.FX(hi, lo), e, cfg.accum_format)

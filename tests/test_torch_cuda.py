@@ -22,6 +22,7 @@ import torch
 from repro_torch.configs import reduced
 from repro_torch.core.ipu import IPUConfig
 from repro_torch.kernels import fused as tfused
+from repro_torch.kernels import mpmm as tmpmm
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import qmm as tqmm
 from repro_torch.kernels import ref as tref
@@ -480,3 +481,129 @@ def test_mp_matmul_wrapper_counts_and_refuses(cuda):
     with pytest.raises(ValueError):
         tops.mp_matmul(a, b.cpu())
     assert tops.launch_counts()["mp_matmul"] == before + 1
+
+
+def _bits(y):
+    return y.view(torch.int16 if y.element_size() == 2 else torch.int32)
+
+
+def _mp_equal(a, b, cfg, fused=False, plan=None):
+    got = tmpmm.mp_matmul(a, b, cfg, fused=fused, plan=plan)
+    want = tref.mp_matmul_blocked_ref(a, b, cfg, fused=fused)
+    assert got.dtype == want.dtype and torch.equal(_bits(got), _bits(want))
+    return got
+
+
+def _ordered(gen, m, k, n, g, step, device):
+    """Group maxima that rise (step 1: every group a record up to the
+    29th) or fall (step -1) one exponent a K-group."""
+    e = (-14 if step > 0 else 15) + step * (torch.arange(k, device=device)
+                                            // g)
+
+    def unit(shape):
+        sign = torch.randint(0, 2, shape, generator=gen, device=device)
+        return (torch.rand(shape, generator=gen, device=device) * 0.5 + 1
+                ) * (sign * 2 - 1)
+    a = torch.ldexp(unit((m, k)), e.clamp(-14, 15).expand(m, k))
+    return (a.to(torch.float16).contiguous(),
+            unit((k, n)).to(torch.float16).contiguous())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("step", [1, -1])
+@pytest.mark.parametrize("cfg", MP_CFGS[::2] + [
+    IPUConfig(n=16, w=16, accum="fp32", rounding="floor")],
+    ids=lambda c: f"n{c.n}w{c.w}{c.accum}{c.rounding[:2]}")
+def test_mp_matmul_ordered_group_maxima(cuda, cfg, step):
+    """Ascending maxima make every group a record: the fold truncates at
+    every group; descending only at the first."""
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(34)
+    for m, k, n in ((8, 29 * cfg.n, 300), (8, 4864, 96), (3, 300, 70)):
+        a, b = _ordered(gen, m, k, n, cfg.n, step, cuda)
+        for fused in (False, True):
+            _mp_equal(a, b, cfg, fused)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cfg", [IPUConfig(n=3, w=16, accum="fp32"),
+                                 IPUConfig(n=40, w=16, rounding="floor"),
+                                 IPUConfig(n=64, w=20, accum="bf16",
+                                           sw_precision=12)],
+                         ids=lambda c: f"n{c.n}")
+def test_mp_matmul_group_sizes(cuda, cfg):
+    """Groups of 3, and of 40 and 64 (staged in two chunks a lane)."""
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(35)
+    for m, k, n in ((8, 896, 130), (5, 203, 72)):
+        a, b = _f16_operands(gen, m, k, n, cuda)
+        for fused in (False, True):
+            _mp_equal(a, b, cfg, fused)
+
+
+@pytest.mark.cuda
+def test_mp_matmul_forced_plans_and_misaligned_pointers(cuda):
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(36)
+    cfg = MP_CFGS[0]
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for m, k, n in ((8, 4864, 200), (9, 896, 300), (5, 200, 72)):
+        a, b = _f16_operands(gen, m, k, n, cuda)
+        want = _mp_equal(a, b, cfg)
+        for force in ({"splits": 1}, {"splits": tmpmm.MAX_SPLITS},
+                      {"bn": 32}, {"bn": 256}, {"splits": 3, "bn": 64}):
+            got = _mp_equal(a, b, cfg,
+                            plan=tmpmm.plan_mpmm(m, n, k, 16, sms, **force))
+            assert torch.equal(_bits(got), _bits(want))
+        for oa, ob in ((1, 0), (0, 1), (0, 2), (3, 5)):
+            def shifted(t, off):
+                buf = torch.empty(t.numel() + off, dtype=t.dtype,
+                                  device=cuda)
+                out = buf[off:].view(t.shape)
+                out.copy_(t)
+                return out
+            got = _mp_equal(shifted(a, oa), shifted(b, ob), cfg)
+            assert torch.equal(_bits(got), _bits(want))
+
+
+@pytest.mark.cuda
+def test_mp_matmul_repeats_and_replays_bit_identical(cuda):
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(37)
+    a, b = _f16_operands(gen, 8, 4864, 896, cuda)
+    cfg = MP_CFGS[0]
+    before = tmpmm.LAUNCHES["mp_matmul"]
+    first = tmpmm.mp_matmul(a, b, cfg)
+    assert tmpmm.LAUNCHES["mp_matmul"] == before + 1
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        tmpmm.mp_matmul(a, b, cfg)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = tmpmm.mp_matmul(a, b, cfg)
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(_bits(out), _bits(first))
+    assert torch.equal(_bits(tmpmm.mp_matmul(a, b, cfg)), _bits(first))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["int8", "int4_packed", "fp4_packed"])
+@pytest.mark.parametrize("groups", [1, 577])
+def test_fused_dequant_deeper_k_than_one_launch(cuda, kind, groups):
+    """K = 18464 at M = 16: one scale group past one launch's K, so the
+    wrapper launches once per K slice and adds the partials."""
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(38)
+    m, k, n = 16, 18464, 72
+    assert len(tfused.k_slices(m, k, groups, kind)) == 2
+    x = torch.randn((m, k), generator=gen, device=cuda) * 2
+    sa = (x.abs().amax() / 127).reshape(())
+    w, sw = _stored(gen, k, n, kind, groups, cuda)
+    for act in tfused.ACTS:
+        before = tfused.LAUNCHES["fused_dequant_mm"]
+        _fd_check(x, w, sw, sa, kind, act)
+        assert tfused.LAUNCHES["fused_dequant_mm"] == before + 2

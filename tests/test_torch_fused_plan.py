@@ -292,3 +292,91 @@ def test_wrapper_takes_the_plain_version_on_cpu_with_any_plan():
                                       plan=plan)
         assert torch.equal(got, want)
     assert tfused.LAUNCHES["fused_dequant_mm"] == before
+
+
+# ------------------------------------------- K deeper than one launch
+
+# (m, k): one launch's edge and one scale group past it, at 16 and at 8
+# register rows
+DEEP = [(16, 18432), (16, 18464), (8, 36864), (8, 36896)]
+
+
+@pytest.mark.parametrize("kind", ["int8", "int4_packed", "fp4_packed"])
+@pytest.mark.parametrize("groups", [1, 4, 577])
+@pytest.mark.parametrize("mk", DEEP, ids=str)
+def test_k_slices_cover_k_on_group_bounds(mk, groups, kind):
+    m, k = mk
+    if k % groups:
+        return
+    slices = tfused.k_slices(m, k, groups, kind)
+    assert _covers(slices, k)
+    cap = tfused.max_launch_k(_rows(m), kind)
+    assert (len(slices) == 1) == (k <= cap)
+    assert len(slices) == max(1, -(-k // cap)) or groups > 1
+    gs = k // groups if groups > 1 else 1
+    for lo, hi in slices:
+        assert hi - lo <= cap and lo % gs == 0 and hi % gs == 0
+        if kind in tfused.PACKED_KINDS:
+            assert lo % 2 == 0 and hi % 2 == 0
+        # every slice has a launch plan of its own
+        tfused.plan_fused_dequant(m, 24, hi - lo,
+                                  (hi - lo) // gs if groups > 1 else 1,
+                                  kind, SMS)
+    with pytest.raises(ValueError):
+        tfused.plan_fused_dequant(m, 24, k, groups, kind, SMS) \
+            if len(slices) > 1 else tfused.k_slices(m, k, 0, kind)
+
+
+def test_k_slices_refuse_a_group_deeper_than_a_launch():
+    with pytest.raises(ValueError):
+        tfused.k_slices(16, 2 * 18464, 2, "int8")
+    with pytest.raises(ValueError):
+        tfused.k_slices(16, 64, 1, "int5")
+
+
+def _slice_sum(x, w, sw, sa, kind, act, slices):
+    """The wrapper's summation past one launch: per slice, the kernel's
+    summation under that slice's own plan (quant's x sa included), the
+    slice partials added in slice order."""
+    xt, wf = _operands(x, w, sw, sa, kind, act)
+    m, k = xt.shape
+    groups = sw.shape[0]
+    total = None
+    for lo, hi in slices:
+        plan = tfused.plan_fused_dequant(
+            m, wf.shape[1], hi - lo,
+            (hi - lo) // (k // groups) if groups > 1 else 1, kind, SMS)
+        part = None
+        for a, b in plan.k_ranges(hi - lo):
+            p = xt[:, lo + a:lo + b] @ wf[lo + a:lo + b]
+            part = p if part is None else part + p
+        part = part * sa if act == "quant" else part
+        total = part if total is None else total + part
+    return total
+
+
+@pytest.mark.parametrize("case", [("int8", "none", 1, (16, 18464)),
+                                  ("int4_packed", "qdq", 1, (16, 18464)),
+                                  ("fp4_packed", "none", 4, (8, 36896)),
+                                  ("int8", "quant", 4, (16, 18464))],
+                         ids=str)
+def test_k_slices_sum_within_bound_of_ref_and_jax(case):
+    kind, act, groups, (m, k) = case
+    n = 16
+    rng = np.random.default_rng([k, groups, len(act)])
+    w, sw = _stored(rng, k, n, kind, groups=groups)
+    x = rng.normal(0, 2, (m, k)).astype(np.float32)
+    sa = np.float32(0.17)
+    slices = tfused.k_slices(m, k, groups, kind)
+    assert len(slices) == 2
+    got = _slice_sum(x, w, sw, sa, kind, act, slices).numpy()
+    bound = _bound(x, w, sw, sa, kind, act)
+    want = tref.fused_dequant_mm_ref(
+        torch.from_numpy(x), torch.from_numpy(w), torch.from_numpy(sw),
+        torch.tensor(sa), kind=kind, act=act).numpy()
+    j = np.asarray(jops.fused_dequant_matmul(
+        jnp.asarray(x), jnp.asarray(w), jnp.asarray(sw), jnp.asarray(sa),
+        kind=kind, act=act, backend="xla"))
+    for ref_out in (want, j):
+        assert np.all(np.abs(got - ref_out) <= bound), (
+            case, float(np.max(np.abs(got - ref_out))))
