@@ -20,7 +20,13 @@ printing one line that starts with ``phase``:
    misaligned pointers and ragged M, N and K, and over repeated
    launches and CUDA-graph replays; ``qmm`` (the tensor-core kernel)
    also at M in {1, 8, 16, 17, 256}, ragged shapes, misaligned pointers, all -128
-   operands and a forced split of 1; ``fused_dequant_mm`` also at M in
+   operands and a forced split of 1; ``fused_qmm`` (int8, int4 and
+   int4_packed) and ``qmm_packed`` (their shared tensor-core kernel)
+   also at M in {1, 17}, ragged shapes with 1, 3 and 8 K ranges,
+   misaligned pointers, -128 weights, packed nibbles 0x7 and 0x8,
+   clamped activations and quantize ties, forced and default plans,
+   and bit-identical over repeated launches and CUDA-graph replays;
+   ``fused_dequant_mm`` also at M in
    {1, 16, 17}, G = 7 and 38, misaligned pointers, each kind's largest
    codes, the fewest and the most K ranges, K deeper than one launch
    takes, and bit-identical over repeated launches and CUDA-graph
@@ -30,10 +36,12 @@ printing one line that starts with ``phase``:
    version's (for ``mp_matmul``: one layer's seven projections), the
    card's least time for the same bytes and operations, and a library
    call where one computes the same function (``torch._int_mm`` for
-   ``qmm``, at M = 8 on rows padded to 32 and at 256 rows in turns with
-   the kernel); ``fused_dequant_mm`` and ``mp_matmul`` also at 256 rows
-   over one layer and per call on the host; and the launch plans of
-   ``qmm``, ``fused_dequant_mm`` and ``mp_matmul`` compared per
+   ``qmm``, eager and replayed, at M = 8 on rows padded to 32 and at
+   256 rows in turns with the kernel); ``fused_qmm`` over int8 rows and
+   over packed int4 (the two exact routes); ``fused_dequant_mm``,
+   ``fused_qmm``, ``qmm_packed`` and ``mp_matmul`` also at 256 rows over
+   one layer and per call on the host; and the launch plans of ``qmm``,
+   ``fused_qmm``, ``fused_dequant_mm`` and ``mp_matmul`` compared per
    projection shape;
 3. full-width qwen2-0.5b (24 layers, d_model 896, vocab 151936, random
    weights from a seed) served by the port's ``ServingEngine`` under
@@ -356,6 +364,186 @@ def _check_qmm(gen):
     return n_cmp
 
 
+# the kernel of fused_qmm and qmm_packed: (wrapper, weight kind), the
+# int4_exact route's fused kind included
+INT_TC = (("fused_qmm", "int8"), ("fused_qmm", "int4"),
+          ("fused_qmm", "int4_packed"), ("qmm_packed", "int4_packed"))
+
+
+def _int_tc_operands(gen, kernel, kind, m, k, n):
+    """(x, w, sw, sa): f32 acts, a stored weight, its scales and the act
+    scale for ``fused_qmm``; int8 acts and random packed bytes (sw, sa
+    None) for ``qmm_packed``."""
+    if kernel == "qmm_packed":
+        return (torch.randint(-128, 128, (m, k), generator=gen,
+                              device="cuda", dtype=torch.int8),
+                torch.randint(-128, 128, (k // 2, n), generator=gen,
+                              device="cuda", dtype=torch.int8), None, None)
+    w, sw = _stored(gen, k, n, kind)
+    x = torch.randn((m, k), generator=gen, device="cuda") * 2
+    return x, w, sw, (x.abs().amax() / 127).reshape(())
+
+
+def _int_tc(kernel, kind, operands, plan=None):
+    from repro_torch.kernels import fused, qmm
+    x, w, sw, sa = operands
+    if kernel == "qmm_packed":
+        return qmm.qmm_packed(x, w, plan=plan)
+    return fused.fused_qmm(x, w, sw, sa, kind=kind, plan=plan)
+
+
+def _int_tc_plain(kernel, kind, operands):
+    from repro_torch.kernels import ref
+    x, w, sw, sa = operands
+    if kernel == "qmm_packed":
+        return ref.qmm_ref(x, ref.unpack_int4_ref(w))
+    return ref.fused_qmm_ref(x, w, sw, sa, kind=kind)
+
+
+def _int_tc_plan(kind, operands, splits=None, **kw):
+    from repro_torch.kernels import qmm
+    x, w = operands[:2]
+    (m, k), n = x.shape, w.shape[1]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return qmm.plan_int_tc(m, n, k, kind == "int4_packed", sms, splits, **kw)
+
+
+def _check_int_tc(gen):
+    """``fused_qmm`` (int8, int4, int4_packed) and ``qmm_packed`` (the
+    tensor-core kernel int_tc_kernel) ``torch.equal`` to their plain
+    versions beyond ``_check_kernels``' shapes (M in {8, 256}): M in
+    {1, 17} x the seven projection shapes; ragged M, N and K with 1, 3
+    and 8 K ranges; x (or a) and w misaligned by 1, 3, 4 and 5 elements;
+    int8 -128 weights, packed nibbles 0x7 and 0x8 in every pairing,
+    activations past the clamp and at quantize ties (x = (j + 1/2) sa at
+    sa 0.125 and 0.1) at K = 4864; every forced number of K ranges and
+    1, 2 and 4 blocks per SM; and three launches, a graph replay and two
+    replays in a row bit-identical at split plans. Returns the
+    comparison count."""
+    n_cmp = 0
+
+    def same(kernel, kind, operands, what, plan=None, want=None):
+        nonlocal n_cmp
+        if want is None:
+            want = _int_tc_plain(kernel, kind, operands)
+        if not torch.equal(_int_tc(kernel, kind, operands, plan), want):
+            raise AssertionError(f"{kernel} {kind} {what} {plan}: not "
+                                 f"bit-equal to its plain version")
+        n_cmp += 1
+
+    for kernel, kind in INT_TC:
+        for m in (1, 17):
+            for _, k, n in LAYER:
+                ops_ = _int_tc_operands(gen, kernel, kind, m, k, n)
+                same(kernel, kind, ops_, (m, k, n))
+        for m, k, n in ((5, 200, 72), (33, 128, 130), (17, 100, 30),
+                        (1, 32, 7), (9, 192, 129), (3, 8, 2), (40, 4864, 36)):
+            ops_ = _int_tc_operands(gen, kernel, kind, m, k, n)
+            want = _int_tc_plain(kernel, kind, ops_)
+            same(kernel, kind, ops_, (m, k, n), want=want)
+            for splits in (1, 3, 8):
+                same(kernel, kind, ops_, (m, k, n),
+                     _int_tc_plan(kind, ops_, splits), want)
+        for m, k, n in ((8, 896, 128), (17, 256, 64), (5, 200, 72)):
+            x0, w0, sw, sa = _int_tc_operands(gen, kernel, kind, m, k, n)
+            want = _int_tc_plain(kernel, kind, (x0, w0, sw, sa))
+            for ox, ow in ((1, 0), (0, 1), (0, 4), (3, 5)):
+                ops_ = (_misaligned(x0, ox), _misaligned(w0, ow), sw, sa)
+                for splits in (None, 1):
+                    same(kernel, kind, ops_, f"{(m, k, n)} at +{(ox, ow)}",
+                         _int_tc_plan(kind, ops_, splits), want)
+        _check_int_tc_extremes(kernel, kind, same)
+        ops_ = _int_tc_operands(gen, kernel, kind, 8, 4864, 896)
+        want = _int_tc_plain(kernel, kind, ops_)
+        for splits in range(1, 9):
+            same(kernel, kind, ops_, "forced", _int_tc_plan(kind, ops_,
+                                                            splits), want)
+        for per_sm in (1, 2, 4):
+            same(kernel, kind, ops_, "forced",
+                 _int_tc_plan(kind, ops_, blocks_per_sm=per_sm), want)
+        for m, k, n in ((8, 4864, 896), (8, 896, 128), (256, 896, 896)):
+            ops_ = _int_tc_operands(gen, kernel, kind, m, k, n)
+            want = _int_tc_plain(kernel, kind, ops_)
+
+            def call():
+                return _int_tc(kernel, kind, ops_)
+            outs = [call(), call(), call(), *_graph_twice(call)]
+            if not all(torch.equal(o, want) for o in outs):
+                raise AssertionError(f"{kernel} {kind} at {(m, k, n)}: "
+                                     f"launches and graph replays differ")
+            n_cmp += len(outs)
+    torch.cuda.synchronize()
+    return n_cmp
+
+
+def _check_int_tc_extremes(kernel, kind, same):
+    """``_check_int_tc``'s extreme operands at K = 4864, N = 896, under
+    the default plan and K unsplit."""
+    m, k, n = 8, 4864, 896
+    if kind == "int4_packed":
+        ws = [torch.full((k // 2, n), byte, dtype=torch.uint8,
+                         device="cuda").view(torch.int8)
+              for byte in (0x77, 0x88, 0x78, 0x87)]
+    else:
+        lo = -128 if kind == "int8" else -8
+        ws = [torch.full((k, n), lo, dtype=torch.int8, device="cuda"),
+              torch.where(torch.arange(n, device="cuda") % 2 == 0, lo,
+                          -lo - 1).to(torch.int8).expand(k, n).contiguous()]
+    sw = torch.linspace(0.01, 2.0, n, device="cuda").reshape(1, n)
+    j = torch.arange(k, device="cuda", dtype=torch.float32) % 300 - 150
+    acts = []
+    for sa in (0.125, 0.1):
+        sa_t = torch.tensor(sa, device="cuda")
+        big = torch.full((m, k), 1e4, device="cuda")
+        big[1::2] = -1e4
+        acts += [(((j + 0.5) * sa).expand(m, k).contiguous(), sa_t),
+                 (big, sa_t)]
+    from repro_torch.kernels import ref
+    for w in ws:
+        if kernel == "qmm_packed":
+            cases = [(torch.full((m, k), -128, dtype=torch.int8,
+                                 device="cuda"), None, None),
+                     (ref.quantize_act_ref(*acts[0]).to(torch.int8), None,
+                      None)]
+        else:
+            cases = [(x, sw, sa) for x, sa in acts]
+        for x, s, sa in cases:
+            for splits in (None, 1):
+                ops_ = (x, w, s, sa)
+                same(kernel, kind, ops_, "extremes",
+                     _int_tc_plan(kind, ops_, splits))
+
+
+def _time_int_tc_plans(gen, kernel, kind):
+    """Per projection shape at M in {8, 256}, for ``kernel`` over weights
+    of ``kind``: the graph-replayed time of one launch in us, averaged
+    over N_LAYERS weights (4 at 256 rows), under the default plan
+    (listed with its block count), planned for 1 and 4 blocks per SM,
+    with K unsplit, and with the most K ranges (8)."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    out = {}
+    for m, count in ((8, N_LAYERS), (256, 4)):
+        for name, k, n in LAYER:
+            ops_ = [_int_tc_operands(gen, kernel, kind, m, k, n)
+                    for _ in range(count)]
+            # one activation per shape, as a decode step serves it
+            ops_ = [ops_[0][:1] + o[1:] for o in ops_]
+            default = _int_tc_plan(kind, ops_[0])
+            plans = {"default": default,
+                     "per_sm_1": _int_tc_plan(kind, ops_[0], blocks_per_sm=1),
+                     "per_sm_4": _int_tc_plan(kind, ops_[0], blocks_per_sm=4),
+                     "split_1": _int_tc_plan(kind, ops_[0], 1),
+                     "splits_8": _int_tc_plan(kind, ops_[0], 8)}
+            key = f"{m} {name}"
+            out[key] = {
+                label: graph_ms(lambda: [_int_tc(kernel, kind, o, p)
+                                         for o in ops_]) / count * 1e3
+                for label, p in plans.items()}
+            out[key]["plan"] = dict(default._asdict(),
+                                    blocks=default.blocks(m, n))
+    return out
+
+
 def _fd_same(x, w, sw, sa, kind, act, what, plan=None):
     """``fused_dequant_mm`` within 2 gamma_K of its plain version (the
     kernel's output is returned)."""
@@ -633,6 +821,12 @@ def _time_kernels(gen, rates):
             lambda s, be: lambda k, w, sw: ops.fused_quantized_matmul(
                 s.x[k], w, sw, s.sa[k], kind="int8", backend=be),
             4, 4, True, "int8"),
+        # the int4_exact route's fused kernel
+        "fused_qmm_int4_packed": (
+            "int4_packed",
+            lambda s, be: lambda k, w, sw: ops.fused_quantized_matmul(
+                s.x[k], w, sw, s.sa[k], kind="int4_packed", backend=be),
+            4, 4, True, "int8"),
         "qmm": (
             "int8",
             lambda s, be: lambda k, w, sw: ops.int8_matmul(
@@ -663,8 +857,23 @@ def _time_kernels(gen, rates):
                      "operations": nops, "calls": N_LAYERS * len(LAYER),
                      "rows": m}
     out["qmm"]["library_rows"] = INT_MM_MIN_ROWS
+    # graph against graph: the kernel's graph_ms beside the library's
+    out["qmm"]["library_graph_ms"] = _int_mm_ms(sweeps["int8"], graph=True)
     out["fused_dequant_mm"]["host_us"] = _fused_host_us(
         sweeps["int4_packed"], plans["fused_dequant_mm"][1])
+    for name in ("fused_qmm", "fused_qmm_int4_packed", "qmm_packed"):
+        sk, make = plans[name][:2]
+        out[name]["host_us"] = _host_us(lambda: sweeps[sk].run(
+            make(sweeps[sk], "kernel")))
+        # the prefill-wave shape (8 slots x a 32-token chunk), one layer
+        wave = _Sweep(gen, 256, sk)
+        wave.layers = wave.layers[:1]
+        big = lambda: wave.run(make(wave, "kernel"))    # noqa: E731
+        out[f"{name}_at_256_rows"] = {
+            "ms": median_ms(big), "graph_ms": graph_ms(big),
+            "plain_ms": median_ms(lambda: wave.run(make(wave, "ref")),
+                                  reps=5),
+            "calls": len(LAYER)}
     # the prefill-wave shape, one layer: chunks of 16 register rows
     wave4 = _Sweep(gen, 256, "int4_packed")
     wave4.layers = wave4.layers[:1]
@@ -686,27 +895,31 @@ def _time_kernels(gen, rates):
     out["qmm_at_256_rows"] = {
         "turns_ms": turns, "ms": statistics.mean([turns[0], turns[3]]),
         "int_mm_ms": statistics.mean([turns[1], turns[2]]),
-        "graph_ms": graph_ms(kernel)}
+        "graph_ms": graph_ms(kernel),
+        "int_mm_graph_ms": _int_mm_ms(wave, graph=True)}
     return out
 
 
+def _host_us(sweep, calls=N_LAYERS * len(LAYER)):
+    """The host's time per call (us): the median of five enqueues of the
+    decode sweep, each drained before the next."""
+    times = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sweep()
+        times.append((time.perf_counter() - t0) / calls * 1e6)
+    torch.cuda.synchronize()
+    return statistics.median(times)
+
+
 def _fused_host_us(s, make):
-    """The host's time per ``fused_dequant_mm`` call (us, median of five
-    enqueues of the decode sweep, each drained before the next), beside
-    what the wrapper no longer does per call: enter the device's context
-    when it is current, and copy ``sa`` through ``torch.as_tensor``."""
+    """The host's time per ``fused_dequant_mm`` call, beside what the
+    wrapper no longer does per call: enter the device's context when it
+    is current, and copy ``sa`` through ``torch.as_tensor``."""
     call = make(s, "kernel")
     calls = N_LAYERS * len(LAYER)
-
-    def per_call(fn):
-        times = []
-        for _ in range(5):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            fn()
-            times.append((time.perf_counter() - t0) / calls * 1e6)
-        torch.cuda.synchronize()
-        return statistics.median(times)
+    per_call = _host_us
 
     def contexts():
         for _ in range(calls):
@@ -726,17 +939,18 @@ def _fused_host_us(s, make):
 INT_MM_MIN_ROWS = 32
 
 
-def _int_mm_ms(s):
+def _int_mm_ms(s, graph=False):
     """torch._int_mm over the sweep (a yardstick, never used by the
-    port). Below INT_MM_MIN_ROWS rows it refuses the shape, so the
-    activations are padded with zero rows to that count first, outside
-    the timed region: the call then does 4x the rows of a decode step
-    but reads the same weights."""
+    port), eager or replayed from a CUDA graph. Below INT_MM_MIN_ROWS
+    rows it refuses the shape, so the activations are padded with zero
+    rows to that count first, outside the timed region: the call then
+    does 4x the rows of a decode step but reads the same weights."""
     a = s.a
     if s.m < INT_MM_MIN_ROWS:
         a = {k: torch.cat([v, v.new_zeros(INT_MM_MIN_ROWS - s.m, k)])
              for k, v in a.items()}
-    return median_ms(lambda: s.run(lambda k, w, sw: torch._int_mm(a[k], w)))
+    return (graph_ms if graph else median_ms)(
+        lambda: s.run(lambda k, w, sw: torch._int_mm(a[k], w)))
 
 
 # ------------------------------------------------- phase 2: mp_matmul
@@ -1039,8 +1253,12 @@ def phase_kernels(rates):
     n_fd, fd_err = _check_fused_dequant(gen)
     err["fused_dequant_mm"] = max(err["fused_dequant_mm"], fd_err)
     n_qmm = _check_qmm(gen)
-    n_cmp += n_fd + n_qmm + _check_mpmm(gen, fidelity)
+    n_int_tc = _check_int_tc(gen)
+    n_cmp += n_fd + n_qmm + n_int_tc + _check_mpmm(gen, fidelity)
     qmm_plans = _time_qmm_plans(gen)
+    fused_qmm_plans = {kind: _time_int_tc_plans(gen, "fused_qmm", kind)
+                       for kind in ("int8", "int4_packed")}
+    packed_plans = _time_int_tc_plans(gen, "qmm_packed", "int4_packed")
     fd_plans = _time_fused_plans(gen)
     err["mp_matmul"] = 0.0             # every comparison was bit-equal
     timing = _time_kernels(gen, rates)
@@ -1051,8 +1269,10 @@ def phase_kernels(rates):
           f"the decode step's projections, mp_matmul "
           f"{timing['mp_matmul']['ms']:.3f} ms", flush=True)
     log(2, comparisons=n_cmp, qmm_comparisons=n_qmm,
-        fused_dequant_comparisons=n_fd, max_abs_err=err, timing=timing,
-        qmm_plans_us=qmm_plans, fused_dequant_plans_us=fd_plans)
+        int_tc_comparisons=n_int_tc, fused_dequant_comparisons=n_fd,
+        max_abs_err=err, timing=timing, qmm_plans_us=qmm_plans,
+        fused_qmm_plans_us=fused_qmm_plans, qmm_packed_plans_us=packed_plans,
+        fused_dequant_plans_us=fd_plans)
     return err, timing
 
 

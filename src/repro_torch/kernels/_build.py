@@ -38,9 +38,11 @@ _I = ctypes.c_int
 # C signature of every exported entry: (argtypes, restype)
 SIGNATURES = {
     "qmm": {
-        # a, b, out, M, N, K, packed, mt, bn, splits, kc, a_vec, w_vec
-        "qmm_launch": [_P, _P, _P] + [_I] * 10 + [_P],
-        "fused_qmm_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+        # a, b, out, M, N, K, mt, bn, splits, kc, a_vec, w_vec, stream
+        "qmm_launch": [_P, _P, _P] + [_I] * 9 + [_P],
+        # x, w, sw, sa, out, M, N, K, fused, packed, mt, splits, kc,
+        # x_vec, w_vec, stream
+        "int_tc_launch": [_P] * 5 + [_I] * 10 + [_P],
     },
     "fused_dequant": {
         # x, w, sw, sa, out, M, N, K, G, kind, act, rows, bn, splits,

@@ -1,11 +1,13 @@
 """Wrappers of the fused kernels over stored operands.
 
 ``fused_qmm`` (``csrc/qmm.cu``) replaces
-``repro/kernels/fused.py::_fused_qmm_kernel``: exact int, bit-equal to
-``ref.fused_qmm_ref``. ``fused_dequant_mm`` (``csrc/fused_dequant.cu``)
-replaces ``::_fused_dequant_kernel``: any storage kind, per-channel or
-per-group scales, f32 accumulation, equal to ``ref.fused_dequant_mm_ref``
-up to the order of summation, with its launch plan chosen here by
+``repro/kernels/fused.py::_fused_qmm_kernel``: exact int on the int8
+tensor cores, bit-equal to ``ref.fused_qmm_ref``, with its launch plan
+chosen by ``kernels.qmm.plan_int_tc`` (the plan of ``qmm_packed`` too).
+``fused_dequant_mm`` (``csrc/fused_dequant.cu``) replaces
+``::_fused_dequant_kernel``: any storage kind, per-channel or per-group
+scales, f32 accumulation, equal to ``ref.fused_dequant_mm_ref`` up to
+the order of summation, with its launch plan chosen here by
 :func:`plan_fused_dequant`, a pure function the CPU tests reach.
 
 On CPU tensors the wrappers run the plain versions; on CUDA tensors they
@@ -23,7 +25,8 @@ from typing import List, NamedTuple, Optional, Tuple
 import torch
 
 from repro_torch.kernels import _build, ref
-from repro_torch.kernels.qmm import (_sm_count, alignment, expect, on_cpu,
+from repro_torch.kernels.qmm import (IntTcPlan, _sm_count, alignment,
+                                     call_on, expect, launch_int_tc, on_cpu,
                                      stream_handle)
 
 LAUNCHES = {"fused_qmm": 0, "fused_dequant_mm": 0}
@@ -197,10 +200,13 @@ def _scales(sw: torch.Tensor) -> torch.Tensor:
 
 
 def fused_qmm(x: torch.Tensor, w: torch.Tensor, sw: torch.Tensor, sa, *,
-              kind: str = "int8") -> torch.Tensor:
+              kind: str = "int8",
+              plan: Optional[IntTcPlan] = None) -> torch.Tensor:
     """Exact fused int matmul: (M, K) f32 acts x stored int8 rows
     (``int8``/``int4``) or (K//2, N) packed int4 bytes -> (M, N) f32.
-    ``sw`` holds (N,) or (1, N) per-channel scales."""
+    ``sw`` holds (N,) or (1, N) per-channel scales. ``plan`` replaces the
+    launch plan (default :func:`~repro_torch.kernels.qmm.plan_int_tc`);
+    the kernel refuses one that does not cover K."""
     if kind not in ("int8", "int4", "int4_packed"):
         raise ValueError(f"fused_qmm takes int kinds, got {kind!r}")
     expect(x, "x", torch.float32)
@@ -214,23 +220,13 @@ def fused_qmm(x: torch.Tensor, w: torch.Tensor, sw: torch.Tensor, sa, *,
     if sw.shape != (1, n):
         raise ValueError(f"fused_qmm needs per-channel scales (1, {n}), "
                          f"got {tuple(sw.shape)}")
-    sa = _scalar(sa, x)
+    if not (isinstance(sa, torch.Tensor) and sa.dim() == 0
+            and sa.dtype == torch.float32 and sa.device == x.device):
+        sa = _scalar(sa, x)
     if on_cpu(x, w, sw, sa):
         return ref.fused_qmm_ref(x, w, sw, sa, kind=kind)
-    from repro_torch.kernels import _build
-    sw = sw.contiguous()
-    out = torch.empty((m, n), dtype=torch.float32, device=x.device)
-    if m == 0 or n == 0:
-        return out                    # an empty grid is not a launch
-    lib = _build.library("qmm")
-    with torch.cuda.device(x.device):
-        err = lib.fused_qmm_launch(
-            x.data_ptr(), w.data_ptr(), sw.data_ptr(), sa.data_ptr(),
-            out.data_ptr(), m, n, k, int(kind == "int4_packed"),
-            stream_handle(x))
-    _build.check(err, "fused_qmm")
-    LAUNCHES["fused_qmm"] += 1
-    return out
+    return launch_int_tc(x, w, sw.contiguous(), sa, kind == "int4_packed",
+                         plan, LAUNCHES, "fused_qmm")
 
 
 def fused_dequant_mm(x: torch.Tensor, w: torch.Tensor, sw: torch.Tensor,
@@ -306,11 +302,7 @@ def _launch_fused_dequant(x, w, sw, sa, kind, act, plan):
             sa.data_ptr() if act != "none" else None, out.data_ptr(),
             m, n, k, groups, KINDS.index(kind), ACTS.index(act), *plan,
             alignment(w), stream_handle(x))
-    if x.device.index == torch.cuda.current_device():
-        err = lib.fused_dequant_launch(*args)
-    else:
-        with torch.cuda.device(x.device):
-            err = lib.fused_dequant_launch(*args)
+    err = call_on(x.device, lib.fused_dequant_launch, *args)
     _build.check(err, "fused_dequant_mm")
     LAUNCHES["fused_dequant_mm"] += 1
     return out

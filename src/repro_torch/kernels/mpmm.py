@@ -20,7 +20,8 @@ import torch
 from repro_torch.core import fp16 as fpmod
 from repro_torch.core.ipu import IPUConfig
 from repro_torch.kernels import _build, ref
-from repro_torch.kernels.qmm import _sm_count, expect, on_cpu, stream_handle
+from repro_torch.kernels.qmm import (_sm_count, call_on, expect, on_cpu,
+                                     stream_handle)
 
 LAUNCHES = {"mp_matmul": 0}
 
@@ -183,11 +184,7 @@ def mp_matmul(a: torch.Tensor, b: torch.Tensor,
             int(cfg.rounding == "floor"), fmt.exp_bits, fmt.mant_bits,
             *plan, _b_vec(b), stream_handle(a))
     lib = _mpmm_library()
-    if a.device.index == torch.cuda.current_device():
-        err = lib.mpmm_launch(*args)
-    else:
-        with torch.cuda.device(a.device):
-            err = lib.mpmm_launch(*args)
+    err = call_on(a.device, lib.mpmm_launch, *args)
     _build.check(err, "mp_matmul")
     LAUNCHES["mp_matmul"] += 1
     return out

@@ -392,6 +392,221 @@ def test_qmm_counts_one_launch_per_call_and_replays_in_a_graph(cuda):
     assert torch.equal(out, want)
 
 
+# ------------------------------- fused_qmm and qmm_packed (int_tc_kernel)
+
+# the kernel under test: (wrapper, weight kind)
+INT_TC = [("fused_qmm", "int8"), ("fused_qmm", "int4"),
+          ("fused_qmm", "int4_packed"), ("qmm_packed", "int4_packed")]
+INT_TC_IDS = [f"{k}-{kind}" for k, kind in INT_TC]
+# qwen2-0.5b's projection shapes, (K, N)
+INT_TC_LAYER = [(896, 896), (896, 128), (896, 4864), (4864, 896)]
+
+
+def _int_tc_operands(gen, kernel, kind, m, k, n, device):
+    """(x, w, sw, sa): f32 acts, a stored weight, its scales and the act
+    scale for ``fused_qmm``; int8 acts and random packed bytes (sw, sa
+    None) for ``qmm_packed``."""
+    if kernel == "qmm_packed":
+        return _int8(gen, (m, k), device), _int8(gen, (k // 2, n), device), \
+            None, None
+    x = torch.randn((m, k), generator=gen, device=device) * 2
+    if k == 0:
+        return x, torch.zeros((0, n), dtype=torch.int8, device=device), \
+            torch.ones((1, n), device=device), torch.tensor(0.1, device=device)
+    w, sw = _stored(gen, k, n, kind, 1, device)
+    return x, w, sw, (x.abs().amax() / 127).reshape(())
+
+
+def _int_tc(kernel, kind, operands, plan=None):
+    x, w, sw, sa = operands
+    if kernel == "qmm_packed":
+        return tqmm.qmm_packed(x, w, plan=plan)
+    return tfused.fused_qmm(x, w, sw, sa, kind=kind, plan=plan)
+
+
+def _int_tc_plain(kernel, kind, operands):
+    x, w, sw, sa = operands
+    if kernel == "qmm_packed":
+        return tref.qmm_ref(x, tref.unpack_int4_ref(w))
+    return tref.fused_qmm_ref(x, w, sw, sa, kind=kind)
+
+
+def _int_tc_plan(kernel, kind, operands, splits=None, **kw):
+    x, w = operands[:2]
+    (m, k), n = x.shape, w.shape[1]
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    return tqmm.plan_int_tc(m, n, k, kind == "int4_packed", sms, splits, **kw)
+
+
+def _int_tc_count(kernel):
+    return tops.launch_counts()[kernel]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 8, 17, 256])
+@pytest.mark.parametrize("kernel,kind", INT_TC, ids=INT_TC_IDS)
+def test_int_tc_equals_plain_at_serving_shapes(cuda, kernel, kind, m):
+    """Bit-equal to the plain version at qwen2-0.5b's projection shapes,
+    default plans, one launch per call."""
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(50 + m)
+    for k, n in INT_TC_LAYER:
+        ops_ = _int_tc_operands(gen, kernel, kind, m, k, n, cuda)
+        before = _int_tc_count(kernel)
+        got = _int_tc(kernel, kind, ops_)
+        assert _int_tc_count(kernel) == before + 1
+        assert torch.equal(got, _int_tc_plain(kernel, kind, ops_)), (k, n)
+
+
+# ragged M, N and K (K even: packed rows), rows aligned to 8, 4, 2 bytes
+INT_TC_EDGES = [(5, 200, 72), (33, 128, 130), (17, 100, 30), (1, 32, 7),
+                (9, 192, 129), (3, 8, 2), (16, 34, 64), (2, 66, 5),
+                (4, 0, 8), (40, 4864, 36)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", INT_TC_EDGES, ids=str)
+@pytest.mark.parametrize("kernel,kind", INT_TC, ids=INT_TC_IDS)
+def test_int_tc_equals_plain_at_edges(cuda, kernel, kind, shape):
+    m, k, n = shape
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(m * 7919 + k * 31 + n)
+    ops_ = _int_tc_operands(gen, kernel, kind, m, k, n, cuda)
+    want = _int_tc_plain(kernel, kind, ops_)
+    assert torch.equal(_int_tc(kernel, kind, ops_), want)
+    for splits in (1, 3, 8):
+        plan = _int_tc_plan(kernel, kind, ops_, splits)
+        assert torch.equal(_int_tc(kernel, kind, ops_, plan), want), plan
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offsets", [(1, 0), (0, 1), (0, 4), (3, 5)],
+                         ids=str)
+@pytest.mark.parametrize("kernel,kind", INT_TC, ids=INT_TC_IDS)
+def test_int_tc_equals_plain_at_misaligned_pointers(cuda, kernel, kind,
+                                                    offsets):
+    """x (or a) and w start ``offsets`` elements past a 16-byte boundary:
+    the kernel takes 4-byte or byte copies, and gives the aligned
+    result."""
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(51)
+    for m, k, n in ((8, 896, 128), (17, 256, 64), (5, 200, 72)):
+        x0, w0, sw, sa = _int_tc_operands(gen, kernel, kind, m, k, n, cuda)
+        x, w = _misaligned(x0, offsets[0]), _misaligned(w0, offsets[1])
+        want = _int_tc_plain(kernel, kind, (x0, w0, sw, sa))
+        for splits in (None, 1, 5):
+            plan = _int_tc_plan(kernel, kind, (x, w), splits)
+            got = _int_tc(kernel, kind, (x, w, sw, sa), plan)
+            assert torch.equal(got, want), (m, k, n, splits)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel,kind", INT_TC, ids=INT_TC_IDS)
+def test_int_tc_extremes(cuda, kernel, kind):
+    """At K = 4864, N = 896: int8 -128 weights, packed nibbles 0x7 and
+    0x8 in every pairing (bytes 0x77, 0x88, 0x78, 0x87), activations
+    whose |x / sa| passes 127.5 (clamped) and ties x = (j + 1/2) sa at
+    an exact (0.125) and an inexact (0.1) scale, all -128 int8
+    activations; default and single-range plans."""
+    m, k, n = 8, 4864, 896
+    packed = kind == "int4_packed"
+    ws = []
+    if packed:
+        for byte in (0x77, 0x88, 0x78, 0x87):
+            ws.append(torch.full((k // 2, n), byte, dtype=torch.uint8,
+                                 device=cuda).view(torch.int8))
+    else:
+        lo = -128 if kind == "int8" else -8
+        ws.append(torch.full((k, n), lo, dtype=torch.int8, device=cuda))
+        ws.append(torch.where(torch.arange(n, device=cuda) % 2 == 0, lo,
+                              -lo - 1).to(torch.int8).expand(k, n)
+                  .contiguous())
+    sw = torch.linspace(0.01, 2.0, n, device=cuda).reshape(1, n)
+    j = torch.arange(k, device=cuda, dtype=torch.float32) % 300 - 150
+    acts = []
+    for sa in (0.125, 0.1):
+        sa_t = torch.tensor(sa, device=cuda)
+        ties = ((j + 0.5) * sa).expand(m, k).contiguous()
+        big = torch.full((m, k), 1e4, device=cuda)
+        big[1::2] = -1e4
+        acts += [(ties, sa_t), (big, sa_t)]
+    for w in ws:
+        if kernel == "qmm_packed":
+            cases = [(torch.full((m, k), -128, dtype=torch.int8,
+                                 device=cuda), None, None)]
+            cases.append((tref.quantize_act_ref(acts[0][0], acts[0][1])
+                          .to(torch.int8), None, None))
+        else:
+            cases = [(x, sw, sa) for x, sa in acts]
+        for x, s, sa in cases:
+            ops_ = (x, w, s, sa)
+            want = _int_tc_plain(kernel, kind, ops_)
+            for splits in (None, 1):
+                plan = _int_tc_plan(kernel, kind, ops_, splits)
+                assert torch.equal(_int_tc(kernel, kind, ops_, plan), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel,kind", INT_TC, ids=INT_TC_IDS)
+def test_int_tc_forced_and_refused_plans(cuda, kernel, kind):
+    """Every forced number of K ranges and grid target gives the same
+    bits; a plan that does not cover K, or that the kernel has no
+    instance of, raises and counts no launch."""
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(52)
+    ops_ = _int_tc_operands(gen, kernel, kind, 8, 4864, 896, cuda)
+    want = _int_tc_plain(kernel, kind, ops_)
+    for splits in range(1, tqmm.TC_MAX_SPLITS + 1):
+        plan = _int_tc_plan(kernel, kind, ops_, splits)
+        assert torch.equal(_int_tc(kernel, kind, ops_, plan), want), plan
+    for per_sm in (1, 2, 4):
+        plan = _int_tc_plan(kernel, kind, ops_, blocks_per_sm=per_sm)
+        assert torch.equal(_int_tc(kernel, kind, ops_, plan), want), plan
+    small = _int_tc_operands(gen, kernel, kind, 8, 256, 64, cuda)
+    before = _int_tc_count(kernel)
+    for plan in (tqmm.IntTcPlan(1, 1, 128), tqmm.IntTcPlan(3, 1, 256),
+                 tqmm.IntTcPlan(1, 9, 32), tqmm.IntTcPlan(1, 2, 144),
+                 tqmm.IntTcPlan(1, 2, 0), tqmm.IntTcPlan(1, 3, 128)):
+        with pytest.raises(RuntimeError, match="cudaError_t"):
+            _int_tc(kernel, kind, small, plan)
+    assert _int_tc_count(kernel) == before
+    got = _int_tc(kernel, kind, small, tqmm.IntTcPlan(1, 8, 32))
+    assert torch.equal(got, _int_tc_plain(kernel, kind, small))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel,kind", INT_TC, ids=INT_TC_IDS)
+def test_int_tc_repeats_and_replays_bit_identical(cuda, kernel, kind):
+    """Split plans (a cluster sum) give the same bits over repeated
+    launches, a CUDA-graph replay and two replays in a row, one launch
+    counted per call."""
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(53)
+    for m, k, n in ((8, 4864, 896), (8, 896, 128), (256, 896, 896)):
+        ops_ = _int_tc_operands(gen, kernel, kind, m, k, n, cuda)
+        assert _int_tc_plan(kernel, kind, ops_).splits > 1
+        want = _int_tc_plain(kernel, kind, ops_)
+        before = _int_tc_count(kernel)
+        outs = [_int_tc(kernel, kind, ops_) for _ in range(3)]
+        assert _int_tc_count(kernel) == before + 3
+        stream = torch.cuda.Stream()
+        stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(stream):
+            _int_tc(kernel, kind, ops_)         # warm up off the default
+        torch.cuda.current_stream().wait_stream(stream)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = _int_tc(kernel, kind, ops_)
+        graph.replay()
+        torch.cuda.synchronize()
+        outs.append(out.clone())
+        graph.replay()
+        graph.replay()
+        torch.cuda.synchronize()
+        outs.append(out.clone())
+        assert all(torch.equal(o, want) for o in outs), (m, k, n)
+
+
 @pytest.mark.cuda
 def test_engine_fused_on_off_identical_on_the_card(cuda):
     """Reduced qwen2-0.5b under fidelity_int8 on the card: the fused
