@@ -47,24 +47,35 @@ printing one line that starts with ``phase``:
    weights from a seed) served by the port's ``ServingEngine`` under
    ``int4_serving`` with calibrated act scales and the fused executors:
    16 requests at decode_block 1 and 4, identical greedy streams, then
-   briefly under ``int8_serving``;
+   briefly under ``int8_serving``. The engine replays its programs from
+   CUDA graphs: each route serves a first wave (captures), the same
+   requests again (replays only) and an eager wave (the engine's
+   private eager calls), all three with the same streams and the same
+   kernel launches, and prints tok/s, TTFT, captures, replays, capture
+   seconds and ``torch.cuda.memory_reserved`` for each; one replay of
+   each of the four programs (prefill wave, decode step, selection,
+   decode block), greedy and sampled, is held bit-identical to its
+   eager run on cloned state;
 4. the exact int routes at full width: fused on vs off under
-   ``fidelity_int8`` and an exact int4 policy, identical greedy streams;
+   ``fidelity_int8`` and an exact int4 policy, identical greedy streams,
+   graphed against eager as in phase 3;
 5. one chunked prefill and one decode step at full width under
    ``int8_serving`` on the card (kernels) and on the CPU (plain
    versions), logits and caches compared;
 6. full-width qwen2-0.5b served under ``fidelity_fp16_ipu``: every
    projection through ``mp_matmul`` (the paper's bit-exact IPU(w)
-   emulation), 8 requests at decode_block 1 and 4, identical greedy
-   streams, no other kernel launched, and the largest |x| that entered
-   ``mp_matmul``.
+   emulation), 8 requests at decode_block 1 and 4, graphed against
+   eager as in phase 3, identical greedy streams, no other kernel
+   launched, and the largest |x| that entered ``mp_matmul``.
 
 Any failure raises and exits non-zero. The line before the last is
 ``{"kernels": [...]}`` (the kernel table), the last line
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without
 the repository around it, it exits non-zero before printing either.
 ``--report`` also writes every number to a JSON file; ``--profile``
-adds a torch.profiler breakdown of one decode block.
+adds a torch.profiler breakdown of one decode block, replayed from its
+graph and run eagerly, under ``int4_serving`` (phase 3),
+``fidelity_int8`` fused (phase 4) and ``fidelity_fp16_ipu`` (phase 6).
 """
 import argparse
 import dataclasses
@@ -1286,28 +1297,108 @@ def _requests(cfg, n, lo, hi, max_new, seed):
                 max_new_tokens=max_new) for i in range(n)]
 
 
-def _serve(cfg, api, params, config, reqs):
-    from repro_torch.serving.engine import ServingEngine
-    eng = ServingEngine(cfg, api, params, config=config)
+def _graph_seconds(stats):
+    """{program: [capture seconds per signature]} and the totals of the
+    engine's program cache (``ServingEngine.metrics()["graphs"]``)."""
+    progs = stats["programs"].values()
+    return (sum(sum(p["capture_s"]) for p in progs),
+            sum(sum(p["warmup_s"]) for p in progs))
+
+
+def _reserved_after():
     torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return torch.cuda.memory_reserved()
+
+
+def _serve(cfg, api, params, config, reqs, eng=None, eager=False):
+    """Serve ``reqs`` to the end on ``eng`` (a new engine when None) and
+    measure the wave: tok/s, TTFT, the engine's counters, and what the
+    program cache did (graphs captured and replayed, seconds of warm-up
+    and capture, ``torch.cuda.memory_reserved`` before and after, the
+    kernels' launches). ``memory_reserved`` is read after
+    ``empty_cache``, so it holds live tensors and the graphs' pool.
+    ``eager`` runs the engine's programs eagerly (its private eager
+    calls), the comparison for the graphs."""
+    import contextlib
+    from repro_torch.kernels import ops
+    from repro_torch.serving.engine import ServingEngine
+    from repro_torch.serving.graphs import count_delta
+    from repro_torch.serving.metrics import percentiles, request_metrics
+    if eng is None:
+        eng = ServingEngine(cfg, api, params, config=config)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()    # reserved: live tensors and graph pools
+    reserved = torch.cuda.memory_reserved()
+    counts, counters = ops.launch_counts(), dict(eng.counters)
+    stats0 = eng.metrics()["graphs"]
+    calls = (eng._graphs._eager_calls() if eager
+             else contextlib.nullcontext())
     t0 = time.perf_counter()
-    for r in reqs:
-        eng.submit(r)
-    eng.run_until_drained()
+    with calls:
+        for r in reqs:
+            eng.submit(r)
+        eng.run_until_drained()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     for r in reqs:
         if not r.done or r.new_tokens != r.budget:
             raise AssertionError(f"request {r.rid} ended with "
                                  f"{r.new_tokens}/{r.budget} tokens")
-    m = eng.metrics()
+    stats = eng.metrics()["graphs"]
     new = sum(r.new_tokens for r in reqs)
-    numbers = {"requests": len(reqs), "new_tokens": new, "wall_s": wall,
-               "tok_per_s": new / wall, "ttft_s": m["ttft_s"],
-               "e2e_s": m["e2e_s"], "host_syncs": m["counters"]["host_syncs"],
-               "decode_steps": m["counters"]["decode_steps"],
-               "prefill_calls": m["counters"]["prefill_calls"]}
+    ttft = percentiles([request_metrics(r)["ttft_s"] for r in reqs])
+    capture_s, warmup_s = (a - b for a, b in zip(_graph_seconds(stats),
+                                                 _graph_seconds(stats0)))
+    numbers = {"mode": "eager" if eager else "graphs",
+               "requests": len(reqs), "new_tokens": new, "wall_s": wall,
+               "tok_per_s": new / wall, "ttft_p50_s": ttft["p50"],
+               "ttft_max_s": ttft["max"],
+               **{k: eng.counters[k] - counters[k]
+                  for k in ("host_syncs", "decode_steps", "prefill_calls")},
+               "captures": stats["captures"] - stats0["captures"],
+               "replays": stats["replays"] - stats0["replays"],
+               "capture_s": capture_s, "warmup_s": warmup_s,
+               "reserved_before": reserved,
+               "reserved_after": _reserved_after(),
+               "launches": count_delta(counts, ops.launch_counts())}
+    if not eager and stats0["captures"] == 0:
+        numbers["capture_s_by_program"] = {
+            k: v["capture_s"] for k, v in stats["programs"].items()}
+    if eager and (numbers["captures"] or numbers["replays"]):
+        raise AssertionError(f"an eager wave touched the graphs: {numbers}")
     return eng, {r.rid: list(r.tokens) for r in reqs}, numbers
+
+
+def _graphs_vs_eager(cfg, api, params, config, make_reqs, results, key):
+    """One route three ways: a new engine's first wave (captures), the
+    same requests again on it (replays only), and a new engine's eager
+    wave. Holds all three to the same streams and the same kernel
+    launches, and the second wave to no capture. Returns (the graphed
+    engine, its streams)."""
+    eng, streams, results[key] = _serve(cfg, api, params, config,
+                                        make_reqs())
+    _, warm, results[f"{key}_warm"] = _serve(cfg, api, params, config,
+                                             make_reqs(), eng=eng)
+    eager_config = dataclasses.replace(config,
+                                       act_calibration=eng.act_scales)
+    _, eager, results[f"{key}_eager"] = _serve(cfg, api, params,
+                                               eager_config, make_reqs(),
+                                               eager=True)
+    if not (streams == warm == eager):
+        raise AssertionError(f"{key}: the graphed waves and the eager wave "
+                             f"give different streams")
+    if results[f"{key}_warm"]["captures"] or not results[f"{key}_warm"][
+            "replays"] or not results[key]["captures"]:
+        raise AssertionError(f"{key}: each signature must be captured once "
+                             f"and replayed after that: "
+                             f"{results[key]} / {results[f'{key}_warm']}")
+    for wave in (key, f"{key}_warm"):
+        if results[wave]["launches"] != results[f"{key}_eager"]["launches"]:
+            raise AssertionError(
+                f"{wave}: launches {results[wave]['launches']} against "
+                f"eager {results[f'{key}_eager']['launches']}")
+    return eng, streams
 
 
 def phase_serving(name, smi, params, cfg_full, profile):
@@ -1321,14 +1412,22 @@ def phase_serving(name, smi, params, cfg_full, profile):
     scales = "auto"
     ops.reset_launch_counts()
     for blk in (1, 4):
-        reqs = _requests(cfg, 16, 8, 64, 16, seed=7)
-        eng, streams[blk], results[f"int4_block{blk}"] = _serve(
+        eng, streams[blk] = _graphs_vs_eager(
             cfg, api, params, EngineConfig(
                 batch_slots=8, cache_len=256, prefill_chunk=32,
                 decode_block=blk, act_calibration=scales,
-                fused_executors="on"), reqs)
+                fused_executors="on"),
+            lambda: _requests(cfg, 16, 8, 64, 16, seed=7), results,
+            f"int4_block{blk}")
         scales = eng.act_scales
     launches = ops.launch_counts()
+    # one replay of each program against its eager run on cloned state
+    replay_checks = {kind: eng._check_replays(kind == "sampled")
+                     for kind in ("greedy", "sampled")}
+    bad = {k: {p: v for p, v in c.items() if v}
+           for k, c in replay_checks.items()}
+    if any(bad.values()):
+        raise AssertionError(f"graph replays differ from eager runs: {bad}")
     if launches["fused_dequant_mm"] <= 0:
         raise AssertionError(f"the serving path launched no "
                              f"fused_dequant_mm: {launches}")
@@ -1356,6 +1455,7 @@ def phase_serving(name, smi, params, cfg_full, profile):
     log(3, card=smi, launches=launches, projection_bytes=proj,
         fp32_projection_bytes=raw, staged=staged, weight_quant=wq,
         act_quant=eng.act_quant_trace_count(), runs=results,
+        replay_checks={k: sorted(c) for k, c in replay_checks.items()},
         profile=profile_numbers)
     return launches, eng8.act_scales
 
@@ -1368,21 +1468,46 @@ def _projections(cfg, params):
 
 
 def _profile(eng, cfg):
+    """One decode block of a full batch under torch.profiler, replayed
+    from its graph and run eagerly (the engine's private eager calls)."""
+    return {"graphs": _profile_block(eng, cfg, eager=False),
+            "eager": _profile_block(eng, cfg, eager=True)}
+
+
+def _profile_block(eng, cfg, eager):
     """Kernel time by name and the device's busy share over one decode
-    block of a full batch (torch.profiler)."""
+    block of a full batch. One block runs before it, so a graphed block
+    is a replay, never a capture."""
+    import contextlib
     from torch.profiler import ProfilerActivity, profile
-    for r in _requests(cfg, 8, 8, 8, 12, seed=9):
-        eng.submit(r)
-    while any(r is None or r.next_input is None for r in eng.slot_req):
-        eng.step()                       # admit and prefill all eight
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    calls = (eng._graphs._eager_calls() if eager
+             else contextlib.nullcontext())
+    with calls:
+        for r in _requests(cfg, 8, 8, 8, 12, seed=9):
+            eng.submit(r)
+        while any(r is None or r.next_input is None for r in eng.slot_req):
+            eng.step()                   # admit and prefill all eight
+        # a block first, so the profiled one's graph is warm; timed
+        # without the profiler (the same work as the profiled block)
+        torch.cuda.synchronize()
+        replays = eng.metrics()["graphs"]["replays"]
         t0 = time.perf_counter()
         eng.step()
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    eng.run_until_drained()
+        plain_wall = time.perf_counter() - t0
+        plain_replayed = eng.metrics()["graphs"]["replays"] - replays
+        replays = eng.metrics()["graphs"]["replays"]
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            eng.step()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        replayed = eng.metrics()["graphs"]["replays"] - replays
+        eng.run_until_drained()
+    if replayed != (0 if eager else 1):
+        raise AssertionError(f"the profiled block replayed {replayed} "
+                             f"graphs (eager={eager})")
     rows = []
     for ev in prof.key_averages():
         dev = getattr(ev, "device_time_total", None)
@@ -1392,16 +1517,22 @@ def _profile(eng, cfg):
             rows.append((ev.key, dev / 1e3, ev.count))
     rows.sort(key=lambda r: -r[1])
     busy_ms = sum(r[1] for r in rows)
-    return {"wall_ms": wall * 1e3, "decode_steps": eng.decode_block,
+    return {"mode": "eager" if eager else "graphs",
+            "wall_ms": wall * 1e3, "decode_steps": eng.decode_block,
             "device_busy_ms": busy_ms,
+            "kernel_launches": sum(r[2] for r in rows),
             "device_idle_share": (1 - busy_ms / (wall * 1e3))
             if rows else None,
+            "unprofiled_block": {
+                "wall_ms": plain_wall * 1e3, "replays": plain_replayed,
+                "device_idle_share": (1 - busy_ms / (plain_wall * 1e3))
+                if rows else None},
             "top_kernels_ms": [[k, t, c] for k, t, c in rows[:15]]}
 
 
 # ------------------------------------------------------------- phase 4
 
-def phase_exact(params, cfg_full):
+def phase_exact(params, cfg_full, profile):
     from repro_torch.core.policy import (PrecisionPolicy, PrecisionSpec,
                                          register_policy)
     from repro_torch.kernels import ops
@@ -1411,7 +1542,7 @@ def phase_exact(params, cfg_full):
     register_policy(PrecisionPolicy("int4_exact",
                                     default=PrecisionSpec("int4",
                                                           exact=True)))
-    out, launches = {}, {}
+    out, launches, profiles = {}, {}, {}
     for policy in ("fidelity_int8", "int4_exact"):
         cfg = dataclasses.replace(cfg_full, precision_policy=policy)
         api = registry.build(cfg)
@@ -1419,12 +1550,15 @@ def phase_exact(params, cfg_full):
         streams = {}
         ops.reset_launch_counts()
         for mode in ("on", "off"):
-            _, streams[mode], out[f"{policy}_{mode}"] = _serve(
+            eng, streams[mode] = _graphs_vs_eager(
                 cfg, api, params, EngineConfig(
                     batch_slots=8, cache_len=256, prefill_chunk=32,
                     decode_block=4, act_calibration=scales,
                     fused_executors=mode),
-                _requests(cfg, 8, 8, 64, 8, seed=11))
+                lambda: _requests(cfg, 8, 8, 64, 8, seed=11), out,
+                f"{policy}_{mode}")
+            if profile and policy == "fidelity_int8" and mode == "on":
+                profiles[f"{policy}_{mode}"] = _profile(eng, cfg)
         launches[policy] = ops.launch_counts()
         if streams["on"] != streams["off"]:
             raise AssertionError(f"{policy}: fused on and off give "
@@ -1436,7 +1570,7 @@ def phase_exact(params, cfg_full):
             if launches[policy][k] <= 0:
                 raise AssertionError(f"{policy} launched no {k}: "
                                      f"{launches[policy]}")
-    log(4, launches=launches, runs=out)
+    log(4, launches=launches, runs=out, profile=profiles or None)
     return launches
 
 
@@ -1507,16 +1641,19 @@ def phase_card_vs_cpu(params, cfg_full, scales):
 class _InputAbsMax:
     """While open, keeps the largest |a| given to ``ops.mp_matmul`` (the
     f16 activations, after the executor's cast), on the card without a
-    host sync: an overflow of the f16 cast shows as inf."""
+    host sync: an overflow of the f16 cast shows as inf. The maximum
+    accumulates in place in one tensor, so a CUDA graph captured while
+    open updates it on every replay; the graphs that hold the probe must
+    not outlive this object."""
 
     def __enter__(self):
         from repro_torch.kernels import ops
-        self.ops, self.orig, self.amax = ops, ops.mp_matmul, None
+        self.ops, self.orig = ops, ops.mp_matmul
+        self.amax = torch.zeros((), dtype=torch.float32, device="cuda")
 
         def probe(a, b, *args, **kwargs):
-            m = a.detach().abs().amax().float()
-            self.amax = m if self.amax is None else torch.maximum(self.amax,
-                                                                  m)
+            torch.maximum(self.amax, a.detach().abs().amax().float(),
+                          out=self.amax)
             return self.orig(a, b, *args, **kwargs)
         ops.mp_matmul = probe
         return self
@@ -1525,28 +1662,34 @@ class _InputAbsMax:
         self.ops.mp_matmul = self.orig
 
 
-def phase_fidelity(params, cfg_full):
+def phase_fidelity(params, cfg_full, profile):
     """Full-width qwen2-0.5b under fidelity_fp16_ipu: every projection
     through ``mp_matmul``, at decode_block 1 and 4."""
     from repro_torch.kernels import ops
     from repro_torch.models import registry
-    from repro_torch.serving import EngineConfig
+    from repro_torch.serving import EngineConfig, ServingEngine
     cfg = dataclasses.replace(cfg_full, precision_policy="fidelity_fp16_ipu")
     api = registry.build(cfg)
     results, streams = {}, {}
+    config = lambda blk: EngineConfig(  # noqa: E731
+        batch_slots=8, cache_len=256, prefill_chunk=32, decode_block=blk)
     ops.reset_launch_counts()
     with _InputAbsMax() as probe:
         for blk in (1, 4):
-            eng, streams[blk], results[f"block{blk}"] = _serve(
-                cfg, api, params, EngineConfig(
-                    batch_slots=8, cache_len=256, prefill_chunk=32,
-                    decode_block=blk),
-                _requests(cfg, 8, 8, 32, 8, seed=12))
+            eng, streams[blk] = _graphs_vs_eager(
+                cfg, api, params, config(blk),
+                lambda: _requests(cfg, 8, 8, 32, 8, seed=12), results,
+                f"block{blk}")
+        amax = float(probe.amax)
+        routes = sorted(set(eng.routing_report().values()))
+        fused = eng.fused
+        del eng                           # its graphs write probe.amax
     launches = ops.launch_counts()
-    amax = float(probe.amax)
-    routes = sorted(set(eng.routing_report().values()))
+    # profiled on an engine without the probe's reductions
+    profile_numbers = (_profile(ServingEngine(cfg, api, params, config(4)),
+                                cfg) if profile else None)
     log(6, launches=launches, mp_matmul_input_absmax=amax, routes=routes,
-        fused=eng.fused, runs=results)
+        fused=fused, runs=results, profile=profile_numbers)
     if launches["mp_matmul"] <= 0:
         raise AssertionError(f"fidelity_fp16_ipu launched no mp_matmul: "
                              f"{launches}")
@@ -1584,7 +1727,8 @@ def main():
     ap.add_argument("--report", help="also write every number to this "
                     "JSON file")
     ap.add_argument("--profile", action="store_true",
-                    help="profile one decode block in phase 3")
+                    help="profile one decode block, replayed from its "
+                    "graph and run eagerly, in phases 3, 4 and 6")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke test needs one",
@@ -1612,9 +1756,9 @@ def main():
     cfg = get_config("qwen2-0.5b")
     params = registry.init_params(cfg, seed=0)
     launches3, scales8 = phase_serving(name, smi, params, cfg, args.profile)
-    launches4 = phase_exact(params, cfg)
+    launches4 = phase_exact(params, cfg, args.profile)
     phase_card_vs_cpu(params, cfg, scales8)
-    launches6 = phase_fidelity(params, cfg)
+    launches6 = phase_fidelity(params, cfg, args.profile)
 
     main_launches = {
         "fused_dequant_mm": launches3["fused_dequant_mm"],

@@ -157,3 +157,16 @@ def reset_launch_counts() -> None:
     for counts in _COUNTS:
         for k in counts:
             counts[k] = 0
+
+
+def add_launch_counts(delta: dict, tables=_COUNTS) -> None:
+    """Add ``delta`` (kernel name -> launches, negative to take some
+    back) to the count tables that hold those names. The engine's
+    program cache (``serving.graphs``) calls it: a CUDA graph's capture
+    moves the counts but launches nothing, and each replay launches what
+    the capture recorded."""
+    for name, n in delta.items():
+        table = next((t for t in tables if name in t), None)
+        if table is None:
+            raise KeyError(f"no launch count named {name!r}")
+        table[name] += n

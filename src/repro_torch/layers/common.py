@@ -87,8 +87,10 @@ def rope_freqs(head_dim: int, rotary_dim: int, theta: float,
                device) -> torch.Tensor:
     exps = (torch.arange(0, rotary_dim, 2, dtype=torch.float32,
                          device=device) / rotary_dim)
-    return 1.0 / (torch.tensor(theta, dtype=torch.float32,
-                               device=device) ** exps)
+    # torch.full, not torch.tensor: a host-to-device copy cannot be
+    # captured into a CUDA graph
+    return 1.0 / (torch.full((), theta, dtype=torch.float32,
+                             device=device) ** exps)
 
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,

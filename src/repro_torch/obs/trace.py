@@ -206,26 +206,33 @@ class Tracer:
 
 def traced_call(fn: Callable, name: str,
                 tracer: Optional[Tracer]) -> Callable:
-    """Wrap a program so its first call surfaces as a ``compile:<name>``
-    span — the port's counterpart of the reference's ``traced_jit``.
+    """Wrap a program so its compilations surface as ``compile:<name>``
+    spans — the port's counterpart of the reference's ``traced_jit``.
 
-    PyTorch runs eagerly, so there is no trace or compile per input
-    signature; what the first call of a program pays once is the build
-    and load of its CUDA kernels (``kernels._build``) and the first
-    launches. The span times that call on the host clock. With tracing
-    disabled the raw callable is returned: zero per-call overhead.
+    When ``fn`` exposes ``_cache_size`` (the engine's program cache,
+    ``serving.graphs``: one CUDA graph per input signature), every call
+    whose cache grew is spanned: the eager warm-up and the capture of a
+    new signature (on the CPU, the first eager call of a signature).
+    Otherwise the first call is. The span times the call on the host
+    clock. With tracing disabled the raw callable is returned: zero
+    per-call overhead. The wrapper keeps ``fn`` as ``__wrapped__``.
     """
     if tracer is None or not tracer.enabled:
         return fn
+    cache_size = getattr(fn, "_cache_size", None)
     state = {"called": False}
 
     def wrapped(*args, **kwargs):
+        before = cache_size() if cache_size is not None else None
         t0 = tracer.clock()
         out = fn(*args, **kwargs)
-        if not state["called"]:
-            state["called"] = True
+        compiled = (cache_size() > before if cache_size is not None
+                    else not state["called"])
+        state["called"] = True
+        if compiled:
             tracer.complete(f"compile:{name}", t0, tracer.clock(),
                             cat="compile")
         return out
 
+    wrapped.__wrapped__ = fn
     return wrapped

@@ -21,11 +21,19 @@ activation scales can be calibrated (``act_calibration``); with both,
 fused CUDA kernels. The engine runs on the CUDA device unless
 ``device="cpu"`` is passed, and raises without CUDA otherwise.
 
+Each of the four dispatch programs (decode step, token selection,
+prefill wave, blocked decode) goes through the engine's program cache
+(``serving.graphs``), the counterpart of the reference's ``jax.jit``: on
+a CUDA device it is captured once per input signature into a CUDA graph
+and replayed after that; on the CPU it is the eager call. The params
+tree and the caches dict are the programs' static arguments, bound by
+identity (the caches update in place).
+
 Host-mirrored slot state (positions, tokens, sampling parameters) lives
 in numpy and reaches the device through copying, blocking transfers
-(``torch.tensor``): the host mutates those arrays right after a
-dispatch, so the device must never read them in place (an async read
-of a host buffer mutated after the dispatch is an aliasing bug).
+into the programs' input buffers: the host mutates those arrays right
+after a dispatch, so the device must never read them in place (an async
+read of a host buffer mutated after the dispatch is an aliasing bug).
 """
 from __future__ import annotations
 
@@ -42,6 +50,7 @@ from repro_torch.device import resolve_device
 from repro_torch.layers.attention import KVCache
 from repro_torch.models import registry
 from repro_torch.obs import MetricsRegistry, ReplicaStats, Tracer, traced_call
+from repro_torch.serving import graphs
 from repro_torch.serving.config import (MAX_STOP_IDS, EngineConfig,
                                         SamplingParams)
 
@@ -157,10 +166,11 @@ class ServingEngine:
         self._g_queue = self.registry.rolling("queue_depth", w)
         self._g_occ = self.registry.rolling("batch_occupancy", w)
         self._g_short = self.registry.rolling("short_block", w)
-        self._decode = traced_call(
-            _with_variant(lambda p, tok, pos, c: api.decode_step(
+        self._graphs = graphs.Programs(self.device)
+        self._decode = self._program(
+            _with_variant(lambda p, c, tok, pos: api.decode_step(
                 p, {"token": tok, "pos": pos}, c), self._variant),
-            "decode_step", self.tracer)
+            2, "decode_step")
         self._temp = np.zeros(self.b, np.float32)
         self._topk = np.zeros(self.b, np.int32)
         self._topp = np.ones(self.b, np.float32)
@@ -168,26 +178,28 @@ class ServingEngine:
         self._keys = np.zeros((self.b, 2), np.int64)
         self._stop_sets: List[frozenset] = [frozenset()] * self.b
         from repro_torch.models.sampling import sample_tokens
-        self._select = traced_call(sample_tokens, "select", self.tracer)
+        self._select = self._program(sample_tokens, 0, "select")
         caps = [c.pos.shape[-1] for c in self.caches.values()]
         self.prefill_chunk = max(
             min(self.config.prefill_chunk, min(caps), self.cache_len), 1)
-        self._prefill_chunk_fn = traced_call(
+        self._prefill_chunk_fn = self._program(
             _with_variant(
-                lambda p, tokens, offs, lens, c: api.prefill_chunk(
+                lambda p, c, tokens, offs, lens: api.prefill_chunk(
                     p, {"tokens": tokens, "offsets": offs,
                         "lengths": lens}, c),
                 self._variant),
-            "prefill_chunk", self.tracer)
+            2, "prefill_chunk")
         self._block_fns: Dict[Tuple[int, bool], Callable] = {}
         self._last_block_short = False
         from repro_torch.quant.prepare import weight_resident_bytes
         self._weight_bytes = weight_resident_bytes(
             self.params, registry.projection_paths(self.cfg))
 
-    def _dev(self, a: np.ndarray) -> torch.Tensor:
-        """A device COPY of a host array (never an alias of it)."""
-        return torch.tensor(a, device=self.device)
+    def _program(self, fn: Callable, n_static: int, name: str) -> Callable:
+        """``fn(*static, *dynamic)`` through the program cache, its
+        compilations spanned as ``compile:<name>``."""
+        return traced_call(self._graphs.program(fn, n_static, name), name,
+                           self.tracer)
 
     def _resolve_act_scales(self, act_calibration, params):
         """None | mapping | 'auto' -> {policy path: static scale}."""
@@ -271,6 +283,48 @@ class ServingEngine:
                     caches)
         return captured
 
+    @torch.no_grad()
+    def _check_replays(self, sample: bool) -> Dict[str, List[str]]:
+        """Hold one replay of each of the four programs bit for bit
+        against the same program run eagerly on cloned state
+        (``graphs.check_replay``), at this engine's shapes with seeded
+        inputs, greedy or sampled: {program: leaves that differ}. The
+        caches are restored afterwards."""
+        from repro_torch.models.sampling import make_key
+        b, chunk, n = self.b, self.prefill_chunk, self.decode_block
+        rng = np.random.default_rng(0)
+        saved = graphs.clone_tree(self.caches)
+        tokens = rng.integers(0, self.cfg.vocab, (b, chunk), dtype=np.int32)
+        offs = np.zeros(b, np.int32)
+        lens = np.full(b, chunk, np.int32)
+        tok, pos = tokens[:, -1], lens.copy()
+        temp = np.full(b, 0.8 if sample else 0.0, np.float32)
+        top_k = np.full(b, 40, np.int32)
+        top_p = np.full(b, 0.95, np.float32)
+        keys = np.array([make_key(self.config.seed, i + 1) for i in range(b)],
+                        np.int64)
+        prog = lambda fn: getattr(fn, "__wrapped__", fn)  # noqa: E731
+        out = {"prefill_chunk": graphs.check_replay(
+            prog(self._prefill_chunk_fn), self.params, self.caches, tokens,
+            offs, lens)}
+        out["decode_step"] = graphs.check_replay(
+            prog(self._decode), self.params, self.caches, tok[:, None], pos)
+        logits, _ = self._decode(self.params, self.caches, tok[:, None], pos)
+        out["select"] = graphs.check_replay(
+            prog(self._select), keys, logits.clone(), temp, top_k, top_p)
+        carry = registry.DecodeCarry(
+            tok=tok, pos=pos, rem=np.full(b, n, np.int32),
+            taken=np.zeros(b, np.int32),
+            stops=np.full((b, MAX_STOP_IDS), -1, np.int32), temp=temp,
+            top_k=top_k, top_p=top_p, keys=keys)
+        out[f"block_decode[n={n}]"] = graphs.check_replay(
+            prog(self._block_decode(n, sample)), self.params, self.caches,
+            carry)
+        for name, cache in self.caches.items():
+            for dst, src in zip(cache, saved[name]):
+                dst.copy_(src)
+        return out
+
     def routing_report(self) -> Dict[str, str]:
         """(policy path -> datapath mode) observed in one decode step."""
         return dict(self._trace_decode(policy_mod.trace_routing))
@@ -315,6 +369,7 @@ class ServingEngine:
         m["trace"] = {"enabled": self.tracer.enabled,
                       "events": len(self.tracer.events),
                       "dropped": self.tracer.dropped}
+        m["graphs"] = self._graphs.stats()
         m["device"] = str(self.device)
         return m
 
@@ -444,8 +499,7 @@ class ServingEngine:
         with self.tracer.span("prefill_dispatch",
                               args={"tokens": total, "slots": len(pref)}):
             self.caches = self._prefill_chunk_fn(
-                self.params, self._dev(tokens), self._dev(offs),
-                self._dev(lens), self.caches)
+                self.params, self.caches, tokens, offs, lens)
         self.counters["prefill_calls"] += 1
         self.counters["prefill_tokens"] += total
         for s, req in pref:
@@ -464,11 +518,11 @@ class ServingEngine:
         fn = self._block_fns.get((n, sample))
         if fn is None:
             kind = "sample" if sample else "greedy"
-            fn = traced_call(
-                registry.make_block_decode(
-                    self.api, n, policy=self.policy, sample=sample,
-                    tracer=self.tracer, fused=self.fused),
-                f"block_decode[n={n},{kind}]", self.tracer)
+            run = registry.make_block_decode(
+                self.api, n, policy=self.policy, sample=sample,
+                tracer=self.tracer, fused=self.fused)
+            fn = self._program(lambda p, c, carry: run(p, carry, c), 2,
+                               f"block_decode[n={n},{kind}]")
             self._block_fns[(n, sample)] = fn
         return fn
 
@@ -544,15 +598,13 @@ class ServingEngine:
             tok[s, 0] = self.slot_req[s].next_input
         with self.tracer.span("block_dispatch", args={"n": 1}):
             logits, self.caches = self._decode(
-                self.params, self._dev(tok), self._dev(self.pos),
-                self.caches)
+                self.params, self.caches, tok, self.pos)
         self.counters["decode_steps"] += 1
         self.counters["host_syncs"] += 1
         with self.tracer.span("host_sync"):
             if any(self._temp[s] > 0 for s in active):
-                keys2, nxt = self._select(
-                    self._dev(self._keys), logits, self._dev(self._temp),
-                    self._dev(self._topk), self._dev(self._topp))
+                keys2, nxt = self._select(self._keys, logits, self._temp,
+                                          self._topk, self._topp)
                 nxt = nxt.cpu().numpy()
                 keys2 = keys2.cpu().numpy()
                 for s in active:
@@ -593,14 +645,13 @@ class ServingEngine:
             self.counters["short_blocks"] += 1
         sample = bool(any(self._temp[s] > 0 for s in active))
         carry = registry.DecodeCarry(
-            tok=self._dev(tok), pos=self._dev(self.pos), rem=self._dev(rem),
-            taken=torch.zeros(self.b, dtype=torch.int32, device=self.device),
-            stops=self._dev(self._stops), temp=self._dev(self._temp),
-            top_k=self._dev(self._topk), top_p=self._dev(self._topp),
-            keys=self._dev(self._keys))
+            tok=tok, pos=self.pos, rem=rem,
+            taken=np.zeros(self.b, np.int32), stops=self._stops,
+            temp=self._temp, top_k=self._topk, top_p=self._topp,
+            keys=self._keys)
         with self.tracer.span("block_dispatch", args={"n": n}):
             tokens, out, self.caches = self._block_decode(n, sample)(
-                self.params, carry, self.caches)
+                self.params, self.caches, carry)
         with self.tracer.span("host_sync"):
             tokens = tokens.cpu().numpy()      # ONE host sync per block
             taken = out.taken.cpu().numpy()

@@ -822,3 +822,164 @@ def test_fused_dequant_deeper_k_than_one_launch(cuda, kind, groups):
         before = tfused.LAUNCHES["fused_dequant_mm"]
         _fd_check(x, w, sw, sa, kind, act)
         assert tfused.LAUNCHES["fused_dequant_mm"] == before + 2
+
+
+# ------------------------------------------------ the engine's CUDA graphs
+
+# (policy, fused_executors): fused_dequant_mm (int4_serving), the staged
+# fake-quant path (int8_serving off), fused_qmm and qmm (fidelity_int8 on
+# and off) and mp_matmul (fidelity_fp16_ipu)
+GRAPH_ROUTES = [("int4_serving", "on"), ("int8_serving", "off"),
+                ("fidelity_int8", "on"), ("fidelity_int8", "off"),
+                ("fidelity_fp16_ipu", "auto")]
+# the kernel each route launches (the staged path runs torch matmuls)
+GRAPH_KERNEL = {("int4_serving", "on"): "fused_dequant_mm",
+                ("int8_serving", "off"): None,
+                ("fidelity_int8", "on"): "fused_qmm",
+                ("fidelity_int8", "off"): "qmm",
+                ("fidelity_fp16_ipu", "auto"): "mp_matmul"}
+GRAPH_IDS = [f"{p}-{m}" for p, m in GRAPH_ROUTES]
+
+
+def _graph_engine(device, policy, fused, decode_block=4, scales="auto"):
+    from repro_torch.serving import EngineConfig
+    from repro_torch.serving.engine import ServingEngine
+    cfg = dataclasses.replace(reduced("qwen2-0.5b"), precision_policy=policy)
+    api = registry.build(cfg)
+    return ServingEngine(cfg, api, api.init(0, device), EngineConfig(
+        batch_slots=3, cache_len=64, prefill_chunk=8,
+        decode_block=decode_block, act_calibration=scales,
+        fused_executors=fused))
+
+
+def _graph_requests(cfg, sampled, seed=0):
+    from repro_torch.serving import Request, SamplingParams
+    rng = np.random.default_rng(seed)
+    return [Request(rid=i, prompt=rng.integers(
+                0, cfg.vocab, int(rng.integers(3, 14)), dtype=np.int32),
+                max_new_tokens=int(rng.integers(4, 10)),
+                sampling=SamplingParams(
+                    temperature=0.8 if sampled and i % 2 == 0 else 0.0,
+                    top_k=40, top_p=0.95))
+            for i in range(5)]
+
+
+def _serve_all(eng, reqs):
+    for r in reqs:
+        eng.submit(r)
+    eng.run_until_drained()
+    return {r.rid: list(r.tokens) for r in reqs}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sampled", [False, True], ids=["greedy", "sampled"])
+@pytest.mark.parametrize("policy,fused", GRAPH_ROUTES, ids=GRAPH_IDS)
+def test_engine_programs_replay_bit_identical_to_eager(cuda, policy, fused,
+                                                       sampled):
+    """Each of the four programs (prefill wave, decode step, selection,
+    decode block), replayed from its graph, gives outputs (tokens,
+    carry, logits) and every cache and parameter tensor bit-identical to
+    the same program run eagerly on cloned state."""
+    eng = _graph_engine(cuda, policy, fused)
+    _serve_all(eng, _graph_requests(eng.cfg, sampled))
+    stats = eng.metrics()["graphs"]
+    assert stats["captures"] == stats["signatures"] > 0
+    assert stats["replays"] > 0
+    checks = eng._check_replays(sampled)
+    assert len(checks) == 4 and all(v == [] for v in checks.values()), checks
+
+
+@pytest.mark.cuda
+def test_interleaved_signatures_replay_bit_identical(cuda):
+    """Block programs replayed in turns (n = 4, 2, 4, then sampled, then
+    greedy) over one cache give what the same sequence gives eagerly."""
+    from repro_torch.serving import graphs
+    eng = _graph_engine(cuda, "int4_serving", "on")
+    _serve_all(eng, _graph_requests(eng.cfg, False))
+    b = eng.b
+
+    def carry(n, sample, seed):
+        rng = np.random.default_rng(seed)
+        return registry.DecodeCarry(
+            tok=rng.integers(0, eng.cfg.vocab, b, dtype=np.int32),
+            pos=np.array([5, 9, 12], np.int32), rem=np.full(b, n, np.int32),
+            taken=np.zeros(b, np.int32), stops=np.full((b, 4), -1, np.int32),
+            temp=np.full(b, 0.8 if sample else 0.0, np.float32),
+            top_k=np.full(b, 40, np.int32), top_p=np.full(b, 0.95, np.float32),
+            keys=np.array([[11 + i, seed] for i in range(b)], np.int64))
+
+    seq = [(4, False), (2, False), (4, False), (4, True), (4, False)]
+    progs = {}
+    for s in seq:
+        fn = eng._block_decode(*s)
+        progs[s] = getattr(fn, "__wrapped__", fn)
+    for s, prog in progs.items():
+        prog(eng.params, eng.caches, carry(*s, 99))       # capture each
+    state = graphs.clone_tree(eng.caches)
+    replays = sum(p.replays for p in progs.values())
+    got = [graphs.clone_tree(progs[s](eng.params, eng.caches, carry(*s, i)))
+           for i, s in enumerate(seq)]
+    assert sum(p.replays for p in progs.values()) == replays + len(seq)
+    want = [graphs.clone_tree(progs[s]._eager(eng.params, state,
+                                              carry(*s, i)))
+            for i, s in enumerate(seq)]
+    for i, (g, w) in enumerate(zip(got, want)):
+        for (path, x), (_, y) in zip(graphs.leaves(g), graphs.leaves(w)):
+            assert graphs.same_bits(x, y), (i, seq[i], path)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("decode_block", [1, 4])
+@pytest.mark.parametrize("policy,fused", GRAPH_ROUTES, ids=GRAPH_IDS)
+def test_graphed_launch_counts_and_streams_equal_eager(cuda, policy, fused,
+                                                       decode_block):
+    """After a graphed run the wrappers' launch counts read what an eager
+    run of the same requests counts (captures take theirs back, replays
+    add theirs), and the streams are the same."""
+    eng = _graph_engine(cuda, policy, fused, decode_block)
+    eager = _graph_engine(cuda, policy, fused, decode_block,
+                          scales=eng.act_scales)
+    tops.reset_launch_counts()
+    streams = _serve_all(eng, _graph_requests(eng.cfg, True, seed=1))
+    graphed = tops.launch_counts()
+    tops.reset_launch_counts()
+    with eager._graphs._eager_calls():
+        assert _serve_all(eager, _graph_requests(eng.cfg, True,
+                                                 seed=1)) == streams
+    assert tops.launch_counts() == graphed
+    kernel = GRAPH_KERNEL[(policy, fused)]
+    assert graphed[kernel] > 0 if kernel else sum(graphed.values()) == 0
+    assert eng.metrics()["graphs"]["replays"] > 0
+    assert eager.metrics()["graphs"]["signatures"] == 0
+
+
+@pytest.mark.cuda
+def test_engine_refuses_a_swapped_cache_tensor(cuda):
+    from repro_torch.serving import Request
+    eng = _graph_engine(cuda, "int8_serving", "on")
+    _serve_all(eng, _graph_requests(eng.cfg, False))
+    b0 = eng.caches["b0"]
+    eng.caches["b0"] = b0._replace(k=b0.k.clone())
+    eng.submit(Request(rid=99, prompt=np.arange(1, 6, dtype=np.int32),
+                       max_new_tokens=3))
+    with pytest.raises(RuntimeError, match="static argument 1/b0/k"):
+        eng.run_until_drained()
+
+
+# last in the file: a failed capture leaves nothing behind that a later
+# test would notice (the stream is restored), but it runs after the rest
+@pytest.mark.cuda
+def test_a_failed_capture_raises_and_keeps_nothing(cuda):
+    """A program that syncs the host runs eagerly at its first call and
+    cannot be captured: the call raises, no signature is kept, the
+    launch counts and the current stream are as before."""
+    from repro_torch.serving import graphs
+    programs = graphs.Programs(cuda)
+    prog = programs.program(lambda x: x * float(x.sum()), 0, "syncs")
+    counts, stream = tops.launch_counts(), torch.cuda.current_stream()
+    with pytest.raises(RuntimeError):
+        prog(np.ones(4, np.float32))
+    assert prog._cache_size() == 0
+    assert tops.launch_counts() == counts
+    assert torch.cuda.current_stream() == stream
+    torch.cuda.synchronize()

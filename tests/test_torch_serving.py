@@ -81,6 +81,10 @@ def test_engine_matches_reference(ref, name):
     assert eng.weight_quant_trace_count() == want["weight_quant"] == 0
     assert eng.act_quant_trace_count() == want["act_quant"] == 0
     assert eng.staged_trace_count() == want["staged"]
+    # on the CPU each program is the eager call: signatures, no graphs
+    programs = eng.metrics()["graphs"]
+    assert programs["captures"] == programs["replays"] == 0
+    assert programs["signatures"] >= 2
 
 
 def test_fused_on_and_off_identical_under_exact_int(ref):
@@ -144,7 +148,7 @@ def test_engine_metrics_and_weight_bytes(ref):
 
 def test_routing_report_and_trace_spans(ref, tmp_path):
     """One decode step routes every projection by the policy, and a
-    traced engine spans the first call of each program as
+    traced engine spans the first call of each program signature as
     ``compile:<name>``."""
     import json
     out, params = ref
@@ -156,10 +160,13 @@ def test_routing_report_and_trace_spans(ref, tmp_path):
     traced.submit(_greedy(0, np.arange(1, 7, dtype=np.int32), 3, ()))
     traced.run_until_drained()
     events = json.load(open(traced.dump_trace(str(tmp_path / "t.json"))))
-    names = {e["name"] for e in events["traceEvents"]}
+    names = [e["name"] for e in events["traceEvents"]]
     assert {"compile:prefill_chunk",
-            "compile:block_decode[n=2,greedy]"} <= names
-    assert {"admission", "prefill_dispatch", "block_dispatch"} <= names
+            "compile:block_decode[n=2,greedy]"} <= set(names)
+    # one span per signature: each program here has one
+    assert names.count("compile:prefill_chunk") == 1
+    assert names.count("compile:block_decode[n=2,greedy]") == 1
+    assert {"admission", "prefill_dispatch", "block_dispatch"} <= set(names)
 
 
 def _projection_leaves(eng):
