@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--report PATH] [--profile]
 
-Drives the port (``src/repro_torch``) on the card, in six phases, each
+Drives the port (``src/repro_torch``) on the card, in seven phases, each
 printing one line that starts with ``phase``:
 
 1. device and build: the card's name and power limit (nvidia-smi), and
@@ -66,7 +66,21 @@ printing one line that starts with ``phase``:
    projection through ``mp_matmul`` (the paper's bit-exact IPU(w)
    emulation), 8 requests at decode_block 1 and 4, graphed against
    eager as in phase 3, identical greedy streams, no other kernel
-   launched, and the largest |x| that entered ``mp_matmul``.
+   launched, and the largest |x| that entered ``mp_matmul``;
+7. full-width qwen2-0.5b served from the committed plan
+   (``results/plans/qwen2_0_5b.json``, ``act_calibration="auto"`` takes
+   its scales): its routes, exactly 6 x 24 ``fused_dequant_mm`` launches
+   per decode step and no other kernel; a two-replica fleet (the plan
+   and ``bf16``) behind the plan-aware router, 16 requests (8-64-token
+   prompts, 16 new tokens, every other one tagged "accuracy"), each
+   placed where the reference's rule puts it (tagged ones on bf16), its
+   greedy stream equal to its replica serving it alone, a first and a
+   warm wave, then the same requests under online cost correction; the
+   replicas' ``replica_cost`` and its seconds; an ``int4_serving``
+   engine saved with ``save_engine_checkpoint`` and rebuilt by
+   ``build_engine`` on the card with no weight quantization, no
+   calibration, bit-equal leaves and the saved engine's streams, and a
+   flipped byte refused with ``ChecksumError`` naming its leaf.
 
 Any failure raises and exits non-zero. The line before the last is
 ``{"kernels": [...]}`` (the kernel table), the last line
@@ -1706,6 +1720,328 @@ def phase_fidelity(params, cfg_full, profile):
     return launches
 
 
+# ------------------------------------------------------------- phase 7
+
+PLAN_FILE = os.path.join(HERE, "results", "plans", "qwen2_0_5b.json")
+PLAN_ROUTES = {"wq": "int8", "wk": "int8", "wv": "int8", "wo": "bf16",
+               "w_gate": "int8", "w_up": "int8", "w_down": "int8"}
+
+
+def _tagged_requests(cfg, n, lo, hi, max_new, seed):
+    """``_requests`` with every other request tagged ``("accuracy",)``."""
+    reqs = _requests(cfg, n, lo, hi, max_new, seed)
+    for r in reqs[1::2]:
+        r.tags = ("accuracy",)
+    return reqs
+
+
+def _fresh(reqs):
+    """New requests with the same ids, prompts, budgets and tags."""
+    from repro_torch.serving import Request
+    return [Request(rid=r.rid, prompt=r.prompt,
+                    max_new_tokens=r.max_new_tokens, tags=r.tags)
+            for r in reqs]
+
+
+def _route_wave(router, reqs):
+    """Submit ``reqs`` through ``router``, each checked against the
+    reference's rule as read here (``repro/serving/router.py:302-305``):
+    an accuracy-tagged request to the least ``acc_proxy``, any other to
+    the least ``cost * (1 + load)`` (lowest index on a tie). Drain as
+    ``Router.step`` does (each replica with work steps once a tick),
+    timing each replica's steps, and return ({rid: replica name},
+    {rid: tokens}, wall seconds, {replica name: seconds in its
+    steps})."""
+    placed = {}
+    for r in reqs:
+        reps = router.replicas
+        if "accuracy" in r.tags:
+            want = min(range(len(reps)),
+                       key=lambda i: (reps[i].cost["acc_proxy"],
+                                      reps[i].load, i))
+        else:
+            costs = router._effective_costs()
+            want = min(range(len(reps)),
+                       key=lambda i: (costs[i] * (1.0 + reps[i].load), i))
+        got = router.submit(r)
+        if got is not reps[want]:
+            raise AssertionError(f"request {r.rid} {r.tags} went to "
+                                 f"{got.name}, the rule says "
+                                 f"{reps[want].name}")
+        placed[r.rid] = got.name
+    busy = {rep.name: 0.0 for rep in router.replicas}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    while router.has_pending():
+        for rep in router.replicas:
+            if rep.has_pending():
+                t1 = time.perf_counter()
+                rep.step()
+                torch.cuda.synchronize()
+                busy[rep.name] += time.perf_counter() - t1
+    wall = time.perf_counter() - t0
+    for r in reqs:
+        if not r.done or r.new_tokens != r.budget:
+            raise AssertionError(f"request {r.rid} ended with "
+                                 f"{r.new_tokens}/{r.budget} tokens")
+    return placed, {r.rid: list(r.tokens) for r in reqs}, wall, busy
+
+
+def _wave_numbers(placed, reqs, wall, busy):
+    """tok/s of the fleet over the wave's wall time, and of each replica
+    over the seconds of its own steps (the replicas step in turns)."""
+    from repro_torch.serving.metrics import percentiles, request_metrics
+    new = {}
+    for r in reqs:
+        new[placed[r.rid]] = new.get(placed[r.rid], 0) + r.new_tokens
+    total = sum(new.values())
+    ttft = percentiles([request_metrics(r)["ttft_s"] for r in reqs])
+    return {"wall_s": wall, "new_tokens": total, "tok_per_s": total / wall,
+            "ttft_p50_s": ttft["p50"], "ttft_max_s": ttft["max"],
+            "routed": {k: sum(1 for v in placed.values() if v == k)
+                       for k in new},
+            "replica_step_s": busy,
+            "replica_tok_per_s": {k: v / busy[k] for k, v in new.items()}}
+
+
+def _solo_streams(reps, reqs):
+    """{replica name: {rid: tokens}}: every request served alone on every
+    replica's engine."""
+    out = {}
+    for rep in reps:
+        out[rep.name] = {}
+        for r in _fresh(reqs):
+            rep.engine.submit(r)
+            rep.engine.run_until_drained()
+            out[rep.name][r.rid] = list(r.tokens)
+    return out
+
+
+def _check_placed(placed, streams, solo, what):
+    bad = [rid for rid, name in placed.items()
+           if streams[rid] != solo[name][rid]]
+    if bad:
+        raise AssertionError(f"{what}: requests {bad} differ from their "
+                             f"replica serving them alone")
+
+
+def _plan_replica(rep):
+    """The plan replica's checks: routing, the scales it took, and one
+    decode step's launches (``fused_dequant_mm`` once per int8
+    projection, nothing else)."""
+    import contextlib
+    from repro_torch.autotune.plan import load_act_scales
+    from repro_torch.kernels import ops
+    from repro_torch.serving.graphs import count_delta
+    eng = rep.engine
+    routes = {p.rsplit("/", 1)[1]: m for p, m in eng.routing_report().items()}
+    if routes != PLAN_ROUTES or not eng.fused:
+        raise AssertionError(f"plan replica: routes {routes}, fused "
+                             f"{eng.fused}")
+    if eng.act_scales != load_act_scales(PLAN_FILE):
+        raise AssertionError("act_calibration='auto' did not take the "
+                             "plan's scales")
+    before = ops.launch_counts()
+    eng._trace_decode(contextlib.nullcontext)
+    torch.cuda.synchronize()
+    step = count_delta(before, ops.launch_counts())
+    want = {"fused_dequant_mm": 6 * eng.cfg.n_layers}
+    if step != want:
+        raise AssertionError(f"one decode step launched {step}, want "
+                             f"{want}")
+    return routes, step, dict(eng.act_scales)
+
+
+def _leaves_equal(a, b):
+    from repro_torch.quant.prepare import tree_manifest
+    from repro_torch.serving.graphs import same_bits
+    la, lb = tree_manifest(a)[1], tree_manifest(b)[1]
+    return len(la) == len(lb) and all(
+        x.device == y.device and same_bits(x, y) for x, y in zip(la, lb))
+
+
+def _checkpoint_round_trip(params, cfg_full, config):
+    """An int4_serving engine, fused and calibrated, saved and rebuilt:
+    no rework on rebuild, bit-equal leaves, the same streams, and a
+    flipped byte refused."""
+    import shutil
+    import tempfile
+    from repro_torch.checkpoint import (ChecksumError, restore_checkpoint)
+    from repro_torch.fabric import build_engine, save_engine_checkpoint
+    from repro_torch.layers.mplinear import count_weight_quant
+    from repro_torch.models import registry
+    from repro_torch.quant import calibrate
+    from repro_torch.serving import ServingEngine
+    cfg = dataclasses.replace(cfg_full, precision_policy="int4_serving")
+    calls = []
+    real = calibrate.calibrate_act_scales
+
+    def counted(*a, **k):
+        calls.append(1)
+        return real(*a, **k)
+    calibrate.calibrate_act_scales = counted
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with count_weight_quant() as wq_fresh:
+            eng = ServingEngine(cfg, registry.build(cfg), params,
+                                config=config)
+        torch.cuda.synchronize()
+        fresh_s = time.perf_counter() - t0
+        fresh_calls = len(calls)
+        reqs = _requests(cfg, 8, 8, 64, 16, seed=21)
+        _, saved_streams, _ = _serve(cfg, None, None, None, reqs, eng=eng)
+        with tempfile.TemporaryDirectory() as d:
+            t0 = time.perf_counter()
+            step_dir = save_engine_checkpoint(eng, os.path.join(d, "ckpt"))
+            save_s = time.perf_counter() - t0
+            disk = sum(os.path.getsize(os.path.join(step_dir, f))
+                       for f in os.listdir(step_dir))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with count_weight_quant() as wq_rebuilt:
+                again = build_engine(os.path.join(d, "ckpt"))
+            torch.cuda.synchronize()
+            restore_s = time.perf_counter() - t0
+            rebuild_calls = len(calls) - fresh_calls
+            restore_parts = {}
+            for verify in (True, False):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                tree, _ = restore_checkpoint(os.path.join(d, "ckpt"), 0,
+                                             verify=verify)
+                torch.cuda.synchronize()
+                restore_parts[f"verify={verify}"] = time.perf_counter() - t0
+                del tree
+            if wq_rebuilt[0] or rebuild_calls or not wq_fresh[0] \
+                    or fresh_calls != 1:
+                raise AssertionError(
+                    f"rebuild did {wq_rebuilt[0]} weight quantizations and "
+                    f"{rebuild_calls} calibrations (fresh: {wq_fresh[0]}, "
+                    f"{fresh_calls})")
+            if again.device != eng.device or not _leaves_equal(
+                    eng.params, again.params):
+                raise AssertionError("restored leaves differ from the "
+                                     "saved engine's, or left the card")
+            if not again.fused or again.act_scales != eng.act_scales:
+                raise AssertionError("the rebuilt engine lost its fused "
+                                     "route or its scales")
+            _, restored_streams, restored_wave = _serve(
+                cfg, None, None, None, _fresh(reqs), eng=again)
+            if restored_streams != saved_streams:
+                raise AssertionError("the rebuilt engine serves other "
+                                     "streams than the saved one")
+            # one flipped byte in one leaf of a copy
+            bad = os.path.join(d, "bad")
+            shutil.copytree(os.path.join(d, "ckpt"), bad)
+            npz = os.path.join(bad, os.path.basename(step_dir), "arrays.npz")
+            with np.load(npz) as data:
+                arrays = {k: data[k] for k in data.files}
+            from repro_torch.checkpoint import _msgpack
+            with open(os.path.join(step_dir, "manifest.msgpack"), "rb") as f:
+                paths = _msgpack.unpackb(f.read())["paths"]
+            leaf = next(i for i, p in enumerate(paths)
+                        if p.endswith("['w_down']['w'].data"))
+            flat = arrays[f"a{leaf}"].reshape(-1)
+            flat[flat.size // 2] ^= np.array(0x10, flat.dtype)
+            np.savez(npz, **arrays)
+            try:
+                restore_checkpoint(bad, 0)
+            except ChecksumError as e:
+                if paths[leaf] not in str(e):
+                    raise AssertionError(f"ChecksumError names another "
+                                         f"leaf: {e}") from None
+                refused = str(e)
+            else:
+                raise AssertionError("a flipped byte restored silently")
+    finally:
+        calibrate.calibrate_act_scales = real
+    return {"fresh_prepare_calibrate_s": fresh_s, "save_s": save_s,
+            "restore_s": restore_s, "restore_checkpoint_s": restore_parts,
+            "bytes_on_disk": disk,
+            "weight_quant_fresh": wq_fresh[0],
+            "weight_quant_rebuilt": wq_rebuilt[0],
+            "calibrations_rebuilt": rebuild_calls,
+            "restored_wave": restored_wave, "corrupt_leaf": paths[leaf],
+            "refused": refused}
+
+
+def phase_fleet(params, cfg_full):
+    """Full-width qwen2-0.5b from the committed plan: the plan replica's
+    routes and launches, a two-replica plan-aware fleet against each
+    replica serving alone (static, then online correction), and an
+    int4_serving engine checkpoint round trip."""
+    import gc
+    from repro_torch.core.policy import get_policy
+    from repro_torch.kernels import ops
+    from repro_torch.serving import EngineConfig, Router, build_replicas
+    from repro_torch.serving.graphs import count_delta
+    from repro_torch.serving.router import replica_cost
+    t_phase = time.perf_counter()
+    config = EngineConfig(batch_slots=8, cache_len=256, prefill_chunk=32,
+                          decode_block=4, act_calibration="auto")
+    plan = f"plan:{PLAN_FILE}"
+    t0 = time.perf_counter()
+    reps = build_replicas(cfg_full, [plan, "bf16"], params=params,
+                          config=config)
+    build_s = time.perf_counter() - t0
+    cost_s = {}
+    for rep in reps:
+        rcfg = dataclasses.replace(cfg_full, precision_policy=rep.policy_name)
+        t0 = time.perf_counter()
+        cost = replica_cost(rcfg, get_policy(rep.policy_name))
+        cost_s[rep.name] = time.perf_counter() - t0
+        if any(cost[k] != rep.cost[k] for k in cost):
+            raise AssertionError(f"{rep.name}: replica_cost is not "
+                                 f"deterministic: {cost} / {rep.cost}")
+    routes, step_launches, scales = _plan_replica(reps[0])
+
+    # static plan-aware routing: a first wave (captures), a warm wave
+    reqs = _tagged_requests(cfg_full, 16, 8, 64, 16, seed=17)
+    before = ops.launch_counts()
+    waves = {}
+    placed, streams, *timing = _route_wave(Router(reps), reqs)
+    waves["first"] = _wave_numbers(placed, reqs, *timing)
+    warm_reqs = _fresh(reqs)
+    placed_w, streams_w, *timing = _route_wave(Router(reps), warm_reqs)
+    waves["warm"] = _wave_numbers(placed_w, warm_reqs, *timing)
+    launches = count_delta(before, ops.launch_counts())
+    reserved = _reserved_after()
+    if streams_w != streams or placed_w != placed:
+        raise AssertionError("the warm wave routed or served otherwise")
+    if any(placed[r.rid] != "bf16" for r in reqs if r.tags):
+        raise AssertionError(f"accuracy-tagged requests left bf16: {placed}")
+    if set(launches) != {"fused_dequant_mm"}:
+        raise AssertionError(f"the fleet launched {launches}")
+    solo = _solo_streams(reps, reqs)
+    _check_placed(placed, streams, solo, "static fleet")
+
+    # online correction on the replicas' measured stats
+    online = Router(reps, cost_correction="online")
+    online_reqs = _fresh(reqs)
+    placed_o, streams_o, *timing = _route_wave(online, online_reqs)
+    waves["online"] = _wave_numbers(placed_o, online_reqs, *timing)
+    _check_placed(placed_o, streams_o, solo, "online fleet")
+    report = online.routing_report()
+    graphs = {rep.name: rep.engine.metrics()["graphs"]["captures"]
+              for rep in reps}
+    costs = {rep.name: {k: v for k, v in rep.cost.items()
+                        if k != "weight_bytes"} for rep in reps}
+    weight_bytes = {rep.name: rep.cost["weight_bytes"] for rep in reps}
+    del reps, online
+    gc.collect()
+    ckpt = _checkpoint_round_trip(params, cfg_full, dataclasses.replace(
+        config, fused_executors="on"))
+    log(7, plan_routes=routes, decode_step_launches=step_launches,
+        plan_scales=scales, build_replicas_s=build_s,
+        replica_cost=costs, replica_cost_s=cost_s, weight_bytes=weight_bytes,
+        fleet=waves, fleet_launches=launches,
+        reserved_two_engines=reserved, captures=graphs,
+        routing_report=report, checkpoint=ckpt,
+        phase_s=time.perf_counter() - t_phase)
+    return launches
+
+
 # ---------------------------------------------------------------- main
 
 KERNELS = {
@@ -1759,9 +2095,11 @@ def main():
     launches4 = phase_exact(params, cfg, args.profile)
     phase_card_vs_cpu(params, cfg, scales8)
     launches6 = phase_fidelity(params, cfg, args.profile)
+    launches7 = phase_fleet(params, cfg)
 
     main_launches = {
-        "fused_dequant_mm": launches3["fused_dequant_mm"],
+        "fused_dequant_mm": launches3["fused_dequant_mm"]
+        + launches7["fused_dequant_mm"],
         "fused_qmm": launches4["fidelity_int8"]["fused_qmm"]
         + launches4["int4_exact"]["fused_qmm"],
         "qmm": launches4["fidelity_int8"]["qmm"],

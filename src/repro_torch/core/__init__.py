@@ -9,6 +9,9 @@ Layers:
   ipu          - bit-exact approximate FP-IP / MC-IPU / INT-mode emulation
   error_bounds - Theorem 1 bounds
   policy       - per-layer precision policies
+  simulator    - cycle-accurate tile/cluster performance model (numpy)
+  area_power   - calibrated 7nm area/power model (numpy)
+  workloads    - ResNet/Inception/LM layer shape sets for the simulator
 
 Importing this package does no CUDA work.
 """

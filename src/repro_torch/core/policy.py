@@ -2,16 +2,16 @@
 
 A PrecisionPolicy maps parameter paths (regex over 'block/attn/wq'-style
 names) to a PrecisionSpec; ``layers.mplinear`` routes each projection's
-matmul by its spec's mode. The presets are the reference's. Policies
-loaded from autotune plans (``"plan:<file>"``) wait for the planner
-slice of the port.
+matmul by its spec's mode. The presets are the reference's;
+``"plan:<file>"`` loads an autotune plan artifact
+(``repro_torch.autotune.plan``).
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
 import re
-from typing import List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 from repro_torch.core.ipu import IPUConfig
 
@@ -104,11 +104,33 @@ def register_policy(policy: PrecisionPolicy) -> PrecisionPolicy:
     return policy
 
 
+_PINNED: Dict[str, PrecisionPolicy] = {}
+
+
+@contextlib.contextmanager
+def pinned_policy(name: str, policy: PrecisionPolicy):
+    """Resolve ``name`` to ``policy`` while open. An engine runs its
+    forwards under the policy it resolved at construction, so a
+    ``plan:`` file rewritten or deleted afterwards (or a registered
+    policy replaced) changes nothing it serves."""
+    prev = _PINNED.get(name)
+    _PINNED[name] = policy
+    try:
+        yield
+    finally:
+        if prev is None:
+            del _PINNED[name]
+        else:
+            _PINNED[name] = prev
+
+
 def get_policy(name: str) -> PrecisionPolicy:
-    """Resolve a policy name. ``"plan:<file>"`` (autotune plan
-    artifacts) waits for the planner slice of the port."""
+    """Resolve a policy name. ``"plan:<path.json>"`` loads a serialized
+    autotune PrecisionPlan artifact and returns its policy."""
+    pinned = _PINNED.get(name)
+    if pinned is not None:
+        return pinned
     if name.startswith("plan:"):
-        raise NotImplementedError(
-            "plan: policies (autotune plan artifacts) wait for the "
-            "planner slice of the port")
+        from repro_torch.autotune.plan import load_policy
+        return load_policy(name[len("plan:"):])
     return POLICIES[name]

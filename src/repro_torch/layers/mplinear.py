@@ -11,7 +11,8 @@ executor; they are not a device fallback: on CUDA every kernel call
 launches the hand-written kernel.
 
 ``count_weight_quant`` / ``count_act_quant`` count dynamic weight and
-activation quantizations on the Python calls made while open;
+activation quantizations on the Python calls made while open (the
+weight count also takes each weight ``quant.prepare`` quantizes);
 ``collect_act_stats`` records each projection's input absmax eagerly
 (calibration; one host sync per projection, only while open).
 """
@@ -75,8 +76,9 @@ _ACT_STATS: Optional[Dict[str, float]] = None
 
 @contextlib.contextmanager
 def count_weight_quant():
-    """Count dynamic weight quantizations while open (prepared weights
-    never hit it)."""
+    """Count weight quantizations while open: the dynamic ones of a
+    forward over raw weights and the ones ``quant.prepare`` makes
+    (prepared weights hit neither)."""
     global _WEIGHT_QUANT_COUNT
     prev, _WEIGHT_QUANT_COUNT = _WEIGHT_QUANT_COUNT, [0]
     try:

@@ -3,20 +3,121 @@
 ``build(cfg)`` -> :class:`ModelAPI` with ``init(seed, device)``,
 ``prefill``, ``decode_step``, ``prefill_chunk``, ``init_cache(batch,
 max_len, device)`` and the ``prepare`` hook; ``projection_paths`` maps
-parameter-tree containers to policy paths; ``make_block_decode`` builds
-the blocked decode program the engine dispatches once per block.
+parameter-tree containers to policy paths; ``projection_groups`` lists
+every family's precision-tuning units (the router's cost model reads
+them, for families whose layers are not ported too);
+``make_block_decode`` builds the blocked decode program the engine
+dispatches once per block.
 """
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import re
-from typing import Any, Callable, NamedTuple, Optional
+from typing import Any, Callable, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.configs import ModelConfig
 from repro_torch.models import lm
+
+
+@dataclasses.dataclass(frozen=True)
+class ProjGroup:
+    """One tunable projection group of an architecture.
+
+    ``pattern`` is the policy-rule regex matching every parameter path the
+    group's matmuls route through (the same paths the layers pass to
+    ``PrecisionPolicy.spec_for``); (d_in, d_out, count) give the matmul
+    shape the accelerator models score (count = matmuls of that shape per
+    forward pass).
+    """
+
+    name: str
+    pattern: str
+    d_in: int
+    d_out: int
+    count: int
+
+    @property
+    def macs_per_token(self) -> int:
+        return self.d_in * self.d_out * self.count
+
+
+def projection_groups(cfg: ModelConfig) -> Tuple["ProjGroup", ...]:
+    """The per-layer precision-tuning units of an architecture — what
+    the autotune planner enumerates candidates over. Grouping is by role
+    (qkv / attn-out / ffn-in / ffn-out / head), the granularity at which
+    mixed-precision schemes are actually deployed (paper Appendix B).
+
+    Patterns must match the literal paths the layers pass to
+    ``PrecisionPolicy.spec_for`` ('block/full/attn/wq', 'block/mix/w_r',
+    'block/rec/w_in_rnn', 'dec/xattn/wo', ...): a pattern that matches
+    nothing makes the rule dead at serve time and the divergence probe
+    silently measure zero.
+    """
+    hd = cfg.head_dim_
+    groups = []
+    # layers that carry attention / per-family projection counts
+    n_attn = cfg.n_layers
+    n_ffn = cfg.n_layers
+    if cfg.family == "griffin":
+        # (rec, rec, attn) repeating pattern + trailing blocks: only the
+        # 'attn' slots have attention, every block has an MLP
+        pat = cfg.rec_pattern or ("rec", "rec", "attn")
+        n_triples = cfg.n_layers // len(pat)
+        tail = pat[:cfg.n_layers - n_triples * len(pat)]
+        n_attn = n_triples * pat.count("attn") + tail.count("attn")
+    elif cfg.family == "encdec":
+        # encoder self + decoder self + decoder cross-attention (the
+        # xattn paths match the same attn/w* patterns)
+        n_enc = cfg.n_enc_layers or cfg.n_layers
+        n_attn = n_enc + 2 * cfg.n_layers
+        n_ffn = n_enc + cfg.n_layers
+    if cfg.family in ("lm", "vlm", "griffin", "encdec"):
+        groups += [
+            ProjGroup("attn_qkv", r"attn/w[qkv]$", cfg.d_model,
+                      (cfg.n_heads + 2 * cfg.n_kv_heads) * hd, n_attn),
+            ProjGroup("attn_wo", r"attn/wo$", cfg.n_heads * hd,
+                      cfg.d_model, n_attn),
+        ]
+    if cfg.family == "rwkv":
+        groups += [
+            ProjGroup("tmix_rkvg", r"mix/w_[rkvg]$", cfg.d_model,
+                      cfg.d_model, 4 * cfg.n_layers),
+            ProjGroup("tmix_out", r"mix/w_o$", cfg.d_model, cfg.d_model,
+                      cfg.n_layers),
+            ProjGroup("cmix", r"mix/c_(key|val|rec)$", cfg.d_model,
+                      cfg.d_ff, 2 * cfg.n_layers),
+        ]
+    if cfg.family == "griffin" and cfg.d_rnn:
+        n_rec = cfg.n_layers - n_attn
+        groups += [
+            ProjGroup("rglru_in", r"rec/w_in_(rnn|gate)$", cfg.d_model,
+                      cfg.d_rnn, 2 * n_rec),
+            ProjGroup("rglru_out", r"rec/w_out$", cfg.d_rnn, cfg.d_model,
+                      n_rec),
+        ]
+    if cfg.moe:
+        groups.append(ProjGroup(
+            "moe_experts", r"moe/experts$", cfg.d_model, cfg.moe.d_expert,
+            3 * cfg.moe.top_k * cfg.n_layers))
+    elif cfg.family != "rwkv":
+        groups += [
+            ProjGroup("ffn_in", r"mlp/w_(gate|up)$", cfg.d_model,
+                      cfg.d_ff, 2 * n_ffn),
+            ProjGroup("ffn_out", r"mlp/w_down$", cfg.d_ff, cfg.d_model,
+                      n_ffn),
+        ]
+    if cfg.family == "vlm":
+        groups.append(ProjGroup(
+            "projector", r"projector/fc[12]$", cfg.vit_dim or cfg.d_model,
+            cfg.d_model, 2))
+    groups.append(ProjGroup(
+        "head", r"lm_head|embed|frontend_proj", cfg.d_model,
+        cfg.padded_vocab, 1))
+    return tuple(groups)
 
 
 def _lm_projection_paths(cfg: ModelConfig) -> Callable[[str], Optional[str]]:

@@ -11,14 +11,16 @@ bit-exactly (the same ``q * scale`` on the same ``q``/``scale``).
 
 The staged kinds (``stage_params``) exist only inside one blocked decode
 dispatch when the fused executors are off; they never live in engine
-storage. Checkpoint manifests (``tree_manifest``) wait for the
-checkpoint slice.
+storage. ``tree_manifest`` / ``tree_from_manifest`` are the
+self-describing checkpoint codec (``repro_torch.checkpoint``): the same
+tree gives the same spec and leaf order as in the reference.
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
-from typing import Any, Callable, Dict, List, Mapping, Optional, Union
+from typing import (Any, Callable, Dict, List, Mapping, Optional, Sequence,
+                    Tuple, Union)
 
 import torch
 
@@ -116,6 +118,8 @@ def _resolved_groups(k: int, spec: PrecisionSpec) -> int:
 
 
 def _quantize_spec(w: torch.Tensor, spec: PrecisionSpec):
+    from repro_torch.layers.mplinear import note_weight_quant
+    note_weight_quant()
     wf = w.to(torch.float32)
     k, n = w.shape[-2:]
     groups = _resolved_groups(k, spec)
@@ -254,6 +258,78 @@ def stage_params(params, policy: PrecisionPolicy, paths: PathResolver,
         return w
 
     return _map_projections(params, resolve, stage)
+
+
+# ---------------------------------------------------------------------------
+# tree <-> manifest: the self-describing checkpoint codec
+#
+# A PreparedWeight tree cannot restore through a template cast (a cast
+# would destroy packed nibbles), so the spec records containers,
+# PreparedWeight kinds and the leaf order explicitly. The order is the
+# reference's (jax's flattening order): sorted dict keys, sequence order,
+# then data, scale, act_scale with None fields skipped.
+
+def tree_manifest(tree) -> Tuple[Any, list]:
+    """Encode ``tree`` into a msgpack-able structure spec + flat leaves.
+
+    Handles dicts, lists, tuples, ``None`` and :class:`PreparedWeight`
+    containers; everything else is a leaf. The inverse is
+    :func:`tree_from_manifest`.
+    """
+    leaves: list = []
+
+    def ref(x) -> int:
+        leaves.append(x)
+        return len(leaves) - 1
+
+    def enc(node):
+        if node is None:
+            return {"t": "none"}
+        if isinstance(node, PreparedWeight):
+            return {"t": "prepared", "kind": node.kind,
+                    "data": ref(node.data),
+                    "scale": None if node.scale is None
+                    else ref(node.scale),
+                    "act_scale": None if node.act_scale is None
+                    else ref(node.act_scale)}
+        if isinstance(node, dict):
+            return {"t": "dict",
+                    "keys": sorted(node),
+                    "items": [enc(node[k]) for k in sorted(node)]}
+        if isinstance(node, (list, tuple)):
+            return {"t": "list" if isinstance(node, list) else "tuple",
+                    "items": [enc(v) for v in node]}
+        return {"t": "leaf", "i": ref(node)}
+
+    return enc(tree), leaves
+
+
+def tree_from_manifest(spec, leaves: Sequence[Any]):
+    """Rebuild the tree :func:`tree_manifest` encoded, consuming restored
+    leaves (exact dtypes: no template, no cast)."""
+
+    def dec(s):
+        t = s["t"]
+        if t == "none":
+            return None
+        if t == "prepared":
+            return PreparedWeight(
+                leaves[s["data"]],
+                None if s["scale"] is None else leaves[s["scale"]],
+                s["kind"],
+                None if s["act_scale"] is None
+                else leaves[s["act_scale"]])
+        if t == "dict":
+            return {k: dec(v) for k, v in zip(s["keys"], s["items"])}
+        if t == "list":
+            return [dec(v) for v in s["items"]]
+        if t == "tuple":
+            return tuple(dec(v) for v in s["items"])
+        if t == "leaf":
+            return leaves[s["i"]]
+        raise ValueError(f"unknown tree-spec node type {t!r}")
+
+    return dec(spec)
 
 
 def iter_projection_weights(params, paths: PathResolver):

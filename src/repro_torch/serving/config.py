@@ -22,6 +22,8 @@ from typing import Any, Optional, Tuple
 # (fixed so the blocked program's shape never depends on a request)
 MAX_STOP_IDS = 4
 
+_PREFILL_MODES = ("auto", "batched", "teacher")
+
 
 @dataclasses.dataclass(frozen=True)
 class EngineConfig:
@@ -47,17 +49,26 @@ class EngineConfig:
     resolved calibrated activation scales — the operands the fused
     kernels need.
 
+    ``prefill`` is the reference's prefill mode: ``"auto"`` and
+    ``"batched"`` both take the chunked prefill waves (the lm family has
+    them); ``"teacher"`` (teacher-forced prefill, for families without
+    chunked prefill) is accepted here, so checkpoints of either package
+    read back, and refused by the port's engine.
+
     Observability (``repro_torch.obs``): ``trace=True`` records request
     lifecycle + tick-phase + compile spans on the engine's
     :class:`~repro_torch.obs.Tracer` (``engine.dump_trace(path)`` exports
     Chrome trace-event JSON; tracing off costs nothing).
-    The engine keeps measured :class:`~repro_torch.obs.ReplicaStats`
-    (EWMA tok/s over per-tick samples with weight ``stats_alpha``; TTFT
-    p95 and rolling gauges over the last ``stats_window`` samples).
+    ``cost_correction`` declares how a router should cost this replica:
+    ``"static"`` keeps the simulator estimate, ``"online"`` blends in
+    the measured :class:`~repro_torch.obs.ReplicaStats` (EWMA tok/s over
+    per-tick samples with weight ``stats_alpha``; TTFT p95 and rolling
+    gauges over the last ``stats_window`` samples).
     """
 
     batch_slots: int = 4
     cache_len: int = 512
+    prefill: str = "auto"              # auto | batched | teacher
     prefill_chunk: int = 32            # prompt tokens per prefill wave
     decode_block: int = 1              # decode steps per host dispatch
     prepare_weights: bool = True
@@ -68,6 +79,7 @@ class EngineConfig:
     eos_id: Optional[int] = None       # engine-wide stop id (e.g. <eos>)
     seed: int = 0                      # base PRNG seed for sampling
     trace: bool = False                # record spans (obs.Tracer)
+    cost_correction: str = "static"    # static | online (router costing)
     stats_window: int = 64             # rolling gauge / TTFT window
     stats_alpha: float = 0.2           # EWMA weight of newest rate sample
 
@@ -78,6 +90,9 @@ class EngineConfig:
         if self.cache_len < 1:
             raise ValueError(f"cache_len must be >= 1, got "
                              f"{self.cache_len}")
+        if self.prefill not in _PREFILL_MODES:
+            raise ValueError(f"prefill mode {self.prefill!r} "
+                             f"(want one of {_PREFILL_MODES})")
         if self.prefill_chunk < 1:
             raise ValueError(f"prefill_chunk must be >= 1, got "
                              f"{self.prefill_chunk}")
@@ -91,6 +106,10 @@ class EngineConfig:
         if self.eos_id is not None and self.eos_id < 0:
             raise ValueError(f"eos_id must be a token id, got "
                              f"{self.eos_id}")
+        if self.cost_correction not in ("static", "online"):
+            raise ValueError(
+                f"cost_correction must be 'static' or 'online', got "
+                f"{self.cost_correction!r}")
         if self.stats_window < 1:
             raise ValueError(f"stats_window must be >= 1, got "
                              f"{self.stats_window}")

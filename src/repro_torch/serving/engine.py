@@ -55,6 +55,22 @@ from repro_torch.serving.config import (MAX_STOP_IDS, EngineConfig,
                                         SamplingParams)
 
 
+def _pinned_api(api: registry.ModelAPI, name: str,
+                policy: policy_mod.PrecisionPolicy) -> registry.ModelAPI:
+    """``api`` whose forwards resolve the policy ``name`` to ``policy``
+    (``core.policy.pinned_policy``): the one the engine resolved at
+    construction, whatever happens to a ``plan:`` file afterwards."""
+    def pin(fn):
+        def run(*args, **kwargs):
+            with policy_mod.pinned_policy(name, policy):
+                return fn(*args, **kwargs)
+        return None if fn is None else run
+
+    return api._replace(prefill=pin(api.prefill),
+                        decode_step=pin(api.decode_step),
+                        prefill_chunk=pin(api.prefill_chunk))
+
+
 def _with_variant(fn: Callable, name: Optional[str]) -> Callable:
     """Run ``fn`` under ``layers.mplinear.executor_variant(name)``."""
     if name is None:
@@ -116,11 +132,15 @@ class ServingEngine:
         self.device = resolve_device(device)
         self.config = config if config is not None else EngineConfig()
         self.cfg = cfg
-        self.api = api
+        if self.config.prefill == "teacher":
+            raise NotImplementedError(
+                "prefill='teacher' (teacher-forced prefill) is not ported; "
+                "the lm family serves 'auto'/'batched' chunked prefill")
         self.b = self.config.batch_slots
         self.cache_len = self.config.cache_len
         self.clock = clock
         self.policy = policy_mod.get_policy(cfg.precision_policy)
+        self.api = api = _pinned_api(api, cfg.precision_policy, self.policy)
         self.decode_block = self.config.decode_block
         if self.decode_block > 1 and not registry.block_decode_eligible(cfg):
             raise ValueError(
@@ -202,7 +222,12 @@ class ServingEngine:
                            self.tracer)
 
     def _resolve_act_scales(self, act_calibration, params):
-        """None | mapping | 'auto' -> {policy path: static scale}."""
+        """None | mapping | 'auto' -> {policy path: static scale}.
+
+        'auto' prefers scales embedded in a ``plan:`` artifact (the plan
+        carries its calibration, which assumes it was calibrated on the
+        weights this replica serves) and otherwise runs a short
+        random-token calibration pass over the raw params."""
         if act_calibration is None:
             return None
         if not self.prepared:
@@ -216,6 +241,12 @@ class ServingEngine:
                 f"{act_calibration!r}")
         if not self._routes_int(params):
             return None
+        pol = self.cfg.precision_policy
+        if pol.startswith("plan:"):
+            from repro_torch.autotune.plan import load_act_scales
+            scales = load_act_scales(pol[len("plan:"):])
+            if scales:
+                return scales
         from repro_torch.quant.calibrate import calibrate_act_scales
         return calibrate_act_scales(self.cfg, self.api, params,
                                     device=self.device)

@@ -202,7 +202,187 @@ def task_serving():
     return out
 
 
-TASKS = {"lm": task_lm, "serving": task_serving}
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PLAN = os.path.join(REPO, "results", "plans", "qwen2_0_5b.json")
+# an fp plan (fp8 with per-group scales, fp4) and an fp/per-group policy
+# for checkpoints: rules as (group name, mode, group_size)
+FP_PLAN_RULES = (("attn_qkv", "fp8", 8), ("ffn_in", "fp4", None))
+FP_GROUPED_RULES = (("attn_qkv", "fp4", 16), ("ffn_in", "fp8", 32),
+                    ("ffn_out", "int4", 32))
+PLAN_CONFIG = dict(batch_slots=2, cache_len=64, prefill_chunk=4,
+                   decode_block=2, act_calibration="auto")
+
+
+def fp_plan_json(groups):
+    """The fp plan as ``precision-plan-v1`` JSON; ``groups`` maps a
+    projection-group name to its pattern."""
+    return {"schema": "precision-plan-v1", "name": "fp_tier",
+            "arch": ARCH, "default_mode": "bf16",
+            "rules": [{"group": g, "pattern": groups[g], "mode": mode,
+                       "group_size": gs}
+                      for g, mode, gs in FP_PLAN_RULES]}
+
+
+def fp_grouped_rules(groups):
+    """(pattern, mode, group_size) of the ``fp_grouped`` policy."""
+    return [(groups[g], mode, gs) for g, mode, gs in FP_GROUPED_RULES]
+
+
+def _greedy_request(rid, prompt, budget, stops):
+    from repro.serving import Request, SamplingParams
+    return Request(rid=rid, prompt=prompt, max_new_tokens=budget,
+                   sampling=SamplingParams(stop_ids=stops))
+
+
+def task_plan():
+    """The committed plan and an fp plan served by the reference engine
+    over the trace (``act_calibration="auto"``): routing of one decode
+    step, the act scales taken, streams and counters."""
+    import json
+    import tempfile
+
+    import jax
+
+    from repro.configs import reduced
+    from repro.models import registry
+    from repro.serving import EngineConfig
+    from repro.serving.engine import ServingEngine
+
+    os.environ["REPRO_FUSED_BACKEND"] = "xla"
+    base = reduced(ARCH)
+    params = registry.build(base).init(jax.random.PRNGKey(0))
+    groups = {g.name: g.pattern for g in registry.projection_groups(base)}
+    out = {"params": _np_tree(params), "cases": {}}
+    with tempfile.TemporaryDirectory() as d:
+        fp_path = os.path.join(d, "fp_plan.json")
+        with open(fp_path, "w") as f:
+            json.dump(fp_plan_json(groups), f)
+        for name, path in (("committed", PLAN), ("fp", fp_path)):
+            cfg = dataclasses.replace(base, precision_policy=f"plan:{path}")
+            api = registry.build(cfg)
+            config = EngineConfig(**PLAN_CONFIG)
+            eng, streams = drive_trace(
+                lambda: ServingEngine(cfg, api, params, config=config),
+                _greedy_request, {})
+            out["cases"][name] = {
+                "routes": eng.routing_report(), "streams": streams,
+                "scales": eng.act_scales, "fused": eng.fused,
+                "counters": dict(eng.counters),
+                "weight_bytes": eng.weight_bytes()}
+    return out
+
+
+def _dir_bytes(path):
+    """{file name: bytes} of a checkpoint step directory."""
+    return {n: open(os.path.join(path, n), "rb").read()
+            for n in sorted(os.listdir(path))}
+
+
+def task_checkpoint():
+    """Reference engine checkpoints (``int4_serving`` calibrated, and an
+    fp/per-group policy), as the bytes of their step directories, with
+    the saved engine's leaves and its streams over the trace."""
+    import tempfile
+
+    import jax
+
+    from repro.configs import reduced
+    from repro.core.policy import (PrecisionPolicy, PrecisionSpec,
+                                   register_policy)
+    from repro.fabric.checkpoint import save_engine_checkpoint
+    from repro.models import registry
+    from repro.serving import EngineConfig
+    from repro.serving.engine import ServingEngine
+
+    os.environ["REPRO_FUSED_BACKEND"] = "xla"
+    base = reduced(ARCH)
+    params = registry.build(base).init(jax.random.PRNGKey(0))
+    groups = {g.name: g.pattern for g in registry.projection_groups(base)}
+    register_policy(PrecisionPolicy("fp_grouped", rules=tuple(
+        (pat, PrecisionSpec(mode, group_size=gs))
+        for pat, mode, gs in fp_grouped_rules(groups))))
+    out = {"cases": {}}
+    for policy, kw in (("int4_serving", dict(act_calibration="auto",
+                                             cost_correction="online")),
+                       ("fp_grouped", dict(act_calibration="auto"))):
+        cfg = dataclasses.replace(base, precision_policy=policy)
+        api = registry.build(cfg)
+        config = EngineConfig(batch_slots=2, cache_len=64, prefill_chunk=4,
+                              decode_block=2, **kw)
+        eng = ServingEngine(cfg, api, params, config=config)
+        with tempfile.TemporaryDirectory() as d:
+            step_dir = save_engine_checkpoint(eng, d, step=3)
+            files = _dir_bytes(step_dir)
+        leaves = jax.tree_util.tree_leaves(eng.params)
+        _, streams = drive_trace(lambda: eng, _greedy_request, {})
+        out["cases"][policy] = {
+            "files": files, "streams": streams, "fused": eng.fused,
+            "leaves": [np.asarray(x) for x in leaves],
+            "scales": eng.act_scales}
+    return out
+
+
+ROUTER_POLICIES = (f"plan:{PLAN}", "bf16", "int4_serving")
+ROUTER_STRATEGIES = ("plan_aware", "least_loaded", "round_robin")
+
+
+def router_requests():
+    """A fixed sequence: 10 prompts, every third tagged 'accuracy'."""
+    rng = np.random.default_rng(5)
+    return [(i, rng.integers(0, 512, 3 + (7 * i) % 9).astype(np.int32),
+             2 + i % 3, ("accuracy",) if i % 3 == 0 else ())
+            for i in range(10)]
+
+
+def drive_router(router, make_request):
+    """Submit the fixed sequence, stepping the router after every second
+    submission; returns (replica name per request, {rid: tokens})."""
+    chosen = []
+    for rid, prompt, budget, tags in router_requests():
+        chosen.append(router.submit(make_request(rid, prompt, budget,
+                                                 tags)).name)
+        if rid % 2:
+            router.step()
+    router.run_until_drained()
+    streams = {rid: list(r.tokens) for rid, r in router.completed.items()}
+    return chosen, streams
+
+
+def task_router():
+    """Three replicas (the committed plan, bf16, int4_serving) built by
+    the reference's ``build_replicas``: their static costs, then the
+    fixed request sequence under each strategy on a fresh fleet."""
+    import jax
+
+    from repro.configs import reduced
+    from repro.models import registry
+    from repro.serving import EngineConfig, Request
+    from repro.serving.router import Router, build_replicas
+
+    os.environ["REPRO_FUSED_BACKEND"] = "xla"
+    base = reduced(ARCH)
+    params = registry.build(base).init(jax.random.PRNGKey(0))
+    config = EngineConfig(batch_slots=2, cache_len=64, prefill_chunk=4)
+    out = {"params": _np_tree(params), "strategies": {}}
+
+    def make_request(rid, prompt, budget, tags):
+        return Request(rid=rid, prompt=prompt, max_new_tokens=budget,
+                       tags=tags)
+
+    for strategy in ROUTER_STRATEGIES:
+        reps = build_replicas(base, ROUTER_POLICIES, params=params,
+                              config=config)
+        out["costs"] = {r.name: dict(r.cost) for r in reps}
+        router = Router(reps, strategy=strategy)
+        chosen, streams = drive_router(router, make_request)
+        out["strategies"][strategy] = {
+            "chosen": chosen, "streams": streams,
+            "counters": router.routing_counters()}
+    return out
+
+
+TASKS = {"lm": task_lm, "serving": task_serving, "plan": task_plan,
+         "checkpoint": task_checkpoint, "router": task_router}
 
 
 if __name__ == "__main__":

@@ -1,5 +1,6 @@
 """Shared helpers of the ``test_torch_*`` parity tests: move the JAX
 reference's parameter trees into the torch port through numpy."""
+import dataclasses
 import importlib.util
 import os
 import pickle
@@ -14,7 +15,13 @@ import torch
 import jax
 
 from repro.quant.prepare import PreparedWeight as JaxPrepared
+from repro_torch.configs import ModelConfig, MoESpec
 from repro_torch.convert import params_from_numpy, to_numpy
+
+# every architecture of the reference's zoo (``repro/configs``)
+ARCHS = ("qwen2-0.5b", "rwkv6-1.6b", "recurrentgemma-9b", "mixtral-8x7b",
+         "internvl2-1b", "seamless-m4t-medium", "gemma2-9b", "glm4-9b",
+         "stablelm-12b", "qwen3-moe-30b-a3b")
 
 
 def jax_to_numpy(tree):
@@ -30,6 +37,15 @@ def jax_to_numpy(tree):
         return np.asarray(x)
     return jax.tree.map(leaf, tree,
                         is_leaf=lambda x: isinstance(x, JaxPrepared))
+
+
+def port_config(ref_cfg) -> ModelConfig:
+    """The port's ModelConfig with a reference config's fields (the port
+    lists only the configs it serves; its cost model reads any)."""
+    d = dataclasses.asdict(ref_cfg)
+    if d["moe"] is not None:
+        d["moe"] = MoESpec(**d["moe"])
+    return ModelConfig(**d)
 
 
 def to_torch(tree):

@@ -14,6 +14,7 @@ most two f32 summation orders of the same products can differ by
 its plain version (compared on the output's bit patterns).
 """
 import dataclasses
+import pathlib
 
 import numpy as np
 import pytest
@@ -983,3 +984,113 @@ def test_a_failed_capture_raises_and_keeps_nothing(cuda):
     assert tops.launch_counts() == counts
     assert torch.cuda.current_stream() == stream
     torch.cuda.synchronize()
+
+
+# ------------------------------------------ plan, checkpoint and router
+
+PLAN = str(pathlib.Path(__file__).resolve().parents[1] / "results"
+           / "plans" / "qwen2_0_5b.json")
+
+
+@pytest.mark.cuda
+def test_plan_engine_launches_fused_dequant_per_int8_projection(cuda):
+    """Reduced qwen2-0.5b served from the committed plan on the card:
+    one decode step launches ``fused_dequant_mm`` once per int8
+    projection (six per layer; ``wo`` is bf16) and no other kernel, and
+    a served wave replays its graphs with those launches."""
+    import contextlib
+    from repro_torch.serving import EngineConfig, Request
+    from repro_torch.serving.engine import ServingEngine
+    from repro_torch.serving.graphs import count_delta
+    cfg = dataclasses.replace(reduced("qwen2-0.5b"),
+                              precision_policy=f"plan:{PLAN}")
+    eng = ServingEngine(cfg, registry.build(cfg), registry.init_params(
+        cfg, 0, cuda), EngineConfig(batch_slots=3, cache_len=64,
+                                    decode_block=4, act_calibration="auto"))
+    assert eng.fused and eng.device.type == "cuda"
+    before = tops.launch_counts()
+    eng._trace_decode(contextlib.nullcontext)
+    torch.cuda.synchronize()
+    assert count_delta(before, tops.launch_counts()) \
+        == {"fused_dequant_mm": 6 * cfg.n_layers}
+    rng = np.random.default_rng(0)
+    before = tops.launch_counts()
+    for i in range(4):
+        eng.submit(Request(rid=i, prompt=rng.integers(0, cfg.vocab, 9,
+                                                      dtype=np.int32),
+                           max_new_tokens=8))
+    eng.run_until_drained()
+    assert set(count_delta(before, tops.launch_counts())) \
+        == {"fused_dequant_mm"}
+    assert eng.metrics()["graphs"]["captures"] > 0
+
+
+@pytest.mark.cuda
+def test_checkpoint_restores_onto_the_card_bit_equal(cuda, tmp_path):
+    """An int4_serving engine on the card, saved and rebuilt with
+    ``build_engine`` (default device): every leaf back on the card bit
+    for bit, no weight quantization, and the same greedy streams."""
+    from repro_torch.fabric import build_engine, save_engine_checkpoint
+    from repro_torch.layers.mplinear import count_weight_quant
+    from repro_torch.quant.prepare import tree_manifest
+    from repro_torch.serving import EngineConfig, Request
+    from repro_torch.serving.engine import ServingEngine
+    from repro_torch.serving.graphs import same_bits
+    cfg = dataclasses.replace(reduced("qwen2-0.5b"),
+                              precision_policy="int4_serving")
+    eng = ServingEngine(cfg, registry.build(cfg), registry.init_params(
+        cfg, 0, cuda), EngineConfig(batch_slots=2, cache_len=64,
+                                    decode_block=4, act_calibration="auto",
+                                    fused_executors="on"))
+    save_engine_checkpoint(eng, str(tmp_path))
+    with count_weight_quant() as wq:
+        again = build_engine(str(tmp_path))
+    assert wq[0] == 0 and again.device.type == "cuda"
+    mine, theirs = tree_manifest(eng.params)[1], tree_manifest(
+        again.params)[1]
+    assert len(mine) == len(theirs)
+    assert all(b.is_cuda and same_bits(a, b) for a, b in zip(mine, theirs))
+
+    def serve(e):
+        rng = np.random.default_rng(3)
+        reqs = [Request(rid=i, prompt=rng.integers(0, cfg.vocab, 7,
+                                                   dtype=np.int32),
+                        max_new_tokens=6) for i in range(3)]
+        for r in reqs:
+            e.submit(r)
+        e.run_until_drained()
+        return [r.tokens for r in reqs]
+    assert serve(eng) == serve(again)
+
+
+@pytest.mark.cuda
+def test_router_over_two_graphed_engines(cuda):
+    """A plan replica and a bf16 replica on the card behind the
+    plan-aware router, stepped in turns: tagged requests on bf16, every
+    stream equal to its replica serving it alone, and each engine
+    captured into its own graphs."""
+    from repro_torch.serving import (EngineConfig, Request, Router,
+                                     build_replicas)
+    cfg = reduced("qwen2-0.5b")
+    reps = build_replicas(cfg, [f"plan:{PLAN}", "bf16"], config=EngineConfig(
+        batch_slots=2, cache_len=64, decode_block=4, act_calibration="auto"))
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(0, cfg.vocab, 5 + i, dtype=np.int32)
+               for i in range(6)]
+
+    def requests():
+        return [Request(rid=i, prompt=p, max_new_tokens=6,
+                        tags=("accuracy",) if i % 2 else ())
+                for i, p in enumerate(prompts)]
+    router = Router(reps)
+    reqs = requests()
+    placed = {r.rid: router.submit(r).name for r in reqs}
+    router.run_until_drained()
+    assert all(placed[i] == "bf16" for i in range(1, 6, 2))
+    for rep in reps:
+        assert rep.engine.metrics()["graphs"]["captures"] > 0
+        for r in requests():
+            if placed[r.rid] == rep.name:
+                rep.engine.submit(r)
+                rep.engine.run_until_drained()
+                assert r.tokens == reqs[r.rid].tokens, (rep.name, r.rid)

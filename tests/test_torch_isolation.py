@@ -1,12 +1,16 @@
 """The port stands alone: no JAX, nothing of ``repro``, no quiet CPU
 fallback, and no compiler needed to import it.
 
-* No module under ``src/repro_torch/`` imports ``jax``/``jaxlib`` or any
-  module of ``repro`` — checked on every module's syntax tree, and by
-  importing the whole package in a fresh interpreter and reading
-  ``sys.modules``. Importing it loads no kernel either.
+* No module under ``src/repro_torch/`` imports ``jax``/``jaxlib``,
+  ``msgpack`` or any module of ``repro`` — checked on every module's
+  syntax tree, and by importing the whole package in a fresh interpreter
+  and reading ``sys.modules``. Importing it loads no kernel either.
+  The plan, checkpoint, fabric and router modules are also imported
+  first, each in a fresh interpreter.
 * Entry points default to CUDA: without a CUDA device and without an
-  explicit ``device="cpu"`` they raise.
+  explicit ``device="cpu"`` they raise (the engine, ``init_params``,
+  calibration, ``build_engine``, ``build_replicas`` and
+  ``restore_checkpoint``).
 * Without ``nvcc`` the kernel loader raises a clear error; it never
   hands back a plain version.
 """
@@ -19,19 +23,25 @@ import pytest
 import torch
 
 from repro_torch import device as tdevice
+from repro_torch.checkpoint import restore_checkpoint
 from repro_torch.configs import reduced
+from repro_torch.fabric import build_engine, save_engine_checkpoint
 from repro_torch.kernels import _build
 from repro_torch.kernels import ops as tops
 from repro_torch.models import registry
 from repro_torch.quant.calibrate import calibrate_act_scales
 from repro_torch.serving.engine import ServingEngine
+from repro_torch.serving.router import build_replicas
 
 PKG = pathlib.Path(__file__).resolve().parents[1] / "src" / "repro_torch"
 
 
+FORBIDDEN = ("jax", "jaxlib", "repro", "msgpack")
+
+
 def _forbidden(name: str) -> bool:
     top = name.split(".")[0]
-    return top in ("jax", "jaxlib", "repro")
+    return top in FORBIDDEN
 
 
 def _imports(path: pathlib.Path):
@@ -58,7 +68,7 @@ def test_importing_the_package_loads_no_jax_no_reference_no_kernel():
         "for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.'):\n"
         "    __import__(m.name)\n"
         "bad = sorted(n for n in sys.modules\n"
-        "             if n.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+        f"             if n.split('.')[0] in {FORBIDDEN!r})\n"
         "assert not bad, bad\n"
         "import repro_torch.kernels._build as b\n"
         "assert not b._LIBS, b._LIBS\n"
@@ -77,19 +87,27 @@ NUMERICS_MODULES = ("repro_torch.core", "repro_torch.core.fp16",
                     "repro_torch.core.error_bounds", "repro_torch.kernels.mpmm")
 
 
-def test_paper_numerics_modules_stand_alone():
-    """The paper-numerics modules and the mpmm wrapper, each imported
-    first in a fresh interpreter: no JAX, nothing of ``repro``, no kernel
-    library loaded, no CUDA context made."""
-    for mod in NUMERICS_MODULES:
+SERVING_SURFACE_MODULES = (
+    "repro_torch.autotune", "repro_torch.autotune.plan",
+    "repro_torch.autotune.objectives", "repro_torch.checkpoint",
+    "repro_torch.checkpoint.checkpoint", "repro_torch.checkpoint._msgpack",
+    "repro_torch.fabric", "repro_torch.fabric.checkpoint",
+    "repro_torch.serving.router", "repro_torch.core.simulator",
+    "repro_torch.core.area_power", "repro_torch.core.workloads")
+
+
+def _imports_alone(modules):
+    """Import ``modules`` first in a fresh interpreter: no JAX, no
+    msgpack, nothing of ``repro``, no kernel library, no CUDA context."""
+    for mod in modules:
         assert (PKG.parent / (mod.replace(".", "/") + ".py")).exists() or \
             (PKG.parent / mod.replace(".", "/") / "__init__.py").exists()
     code = (
         "import importlib, sys, torch\n"
-        f"for name in {NUMERICS_MODULES!r}:\n"
+        f"for name in {modules!r}:\n"
         "    importlib.import_module(name)\n"
         "bad = sorted(n for n in sys.modules\n"
-        "             if n.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+        f"             if n.split('.')[0] in {FORBIDDEN!r})\n"
         "assert not bad, bad\n"
         "import repro_torch.kernels._build as b\n"
         "assert not b._LIBS, b._LIBS\n"
@@ -101,6 +119,19 @@ def test_paper_numerics_modules_stand_alone():
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip() == "ok"
+
+
+def test_paper_numerics_modules_stand_alone():
+    """The paper-numerics modules and the mpmm wrapper, each imported
+    first in a fresh interpreter: no JAX, nothing of ``repro``, no kernel
+    library loaded, no CUDA context made."""
+    _imports_alone(NUMERICS_MODULES)
+
+
+def test_serving_surface_modules_stand_alone():
+    """The plan, checkpoint, fabric, router and cost-model modules, each
+    imported first in a fresh interpreter, as above."""
+    _imports_alone(SERVING_SURFACE_MODULES)
 
 
 @pytest.fixture
@@ -122,6 +153,26 @@ def test_entry_points_raise_without_cuda_unless_asked_for_cpu(no_cuda):
         tdevice.resolve_device("cuda")
     eng = ServingEngine(cfg, api, params, device="cpu")
     assert eng.device == torch.device("cpu")
+
+
+def test_serving_surface_raises_without_cuda_unless_asked_for_cpu(
+        no_cuda, tmp_path):
+    cfg = reduced("qwen2-0.5b")
+    params = registry.init_params(cfg, device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        build_replicas(cfg, ["bf16"], params=params)
+    (rep,) = build_replicas(cfg, ["bf16"], params=params, device="cpu")
+    save_engine_checkpoint(rep.engine, str(tmp_path))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        build_engine(str(tmp_path))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        restore_checkpoint(str(tmp_path), 0)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        restore_checkpoint(str(tmp_path), 0, device="cuda")
+    eng = build_engine(str(tmp_path), device="cpu")
+    assert eng.device == torch.device("cpu")
+    tree, _ = restore_checkpoint(str(tmp_path), 0, device="cpu")
+    assert tree["embed"]["w"].device == torch.device("cpu")
 
 
 def test_loader_raises_without_nvcc(monkeypatch, tmp_path):

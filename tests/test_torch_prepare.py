@@ -7,6 +7,7 @@ data, scales, act-scale leaves, dequantized values, staged operands and
 ``weight_resident_bytes``.
 """
 import dataclasses
+import os
 
 import numpy as np
 import pytest
@@ -148,7 +149,9 @@ def test_prepare_weight_odd_k_and_passthrough():
 def test_policies_route_like_the_reference():
     paths = ["block/full/attn/wq", "block/mlp/w_down", "lm_head", "router",
              "block/full/attn/wo", "embed"]
-    for name in jpolicy.POLICIES:
+    plan = "plan:" + os.path.join(os.path.dirname(__file__), "..", "results",
+                                  "plans", "qwen2_0_5b.json")
+    for name in list(jpolicy.POLICIES) + [plan]:
         jp, tp = jpolicy.get_policy(name), tpolicy.get_policy(name)
         for p in paths:
             js, ts = jp.spec_for(p), tp.spec_for(p)
@@ -156,5 +159,3 @@ def test_policies_route_like_the_reference():
                 js.mode, js.exact, js.group_size, js.weight_bits), (name, p)
             if js.ipu is not None:
                 assert dataclasses.asdict(ts.ipu) == dataclasses.asdict(js.ipu)
-    with pytest.raises(NotImplementedError):
-        tpolicy.get_policy("plan:results/plans/qwen2_0_5b.json")
