@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--report PATH] [--profile]
 
-Drives the port (``src/repro_torch``) on the card, in seven phases, each
+Drives the port (``src/repro_torch``) on the card, in nine phases, each
 printing one line that starts with ``phase``:
 
 1. device and build: the card's name and power limit (nvidia-smi), and
@@ -42,7 +42,10 @@ printing one line that starts with ``phase``:
    ``fused_qmm``, ``qmm_packed`` and ``mp_matmul`` also at 256 rows over
    one layer and per call on the host; and the launch plans of ``qmm``,
    ``fused_qmm``, ``fused_dequant_mm`` and ``mp_matmul`` compared per
-   projection shape;
+   projection shape; then every kernel at the projection shapes of
+   gemma2-9b and qwen3-moe-30b-a3b (K and N up to 14336) at M in {8,
+   256} (``mp_matmul`` at gemma2's wk, M = 8), with each shape's launch
+   plans printed;
 3. full-width qwen2-0.5b (24 layers, d_model 896, vocab 151936, random
    weights from a seed) served by the port's ``ServingEngine`` under
    ``int4_serving`` with calibrated act scales and the fused executors:
@@ -80,7 +83,35 @@ printing one line that starts with ``phase``:
    engine saved with ``save_engine_checkpoint`` and rebuilt by
    ``build_engine`` on the card with no weight quantization, no
    calibration, bit-equal leaves and the saved engine's streams, and a
-   flipped byte refused with ``ChecksumError`` naming its leaf.
+   flipped byte refused with ``ChecksumError`` naming its leaf;
+8. qwen3-moe-30b-a3b at full width (d_model 2048, 32/4 heads of 128,
+   128 experts, top-8, d_expert 768, vocab 151936, untied) cut to 16 of
+   its 48 layers (48 layers of f32 parameters are about 122 GB), random
+   weights from a seed, calibrated and prepared by one engine under
+   ``int4_serving`` after which only the prepared tree is kept (the raw
+   f32 expert stacks are released; ``memory_allocated`` before and
+   after), then 8 requests (8-64-token prompts, 8 new tokens) at
+   decode_block 1 and 4, each graphed (first and warm waves) against
+   eager as in phase 3, identical greedy streams, exactly 4 x 16
+   ``fused_dequant_mm`` launches per decode step and no other kernel;
+   tok/s, TTFT, ``memory_reserved``, ``max_memory_allocated``, the
+   (token, k) assignments the eager wave's prefill dropped at capacity;
+   layer 0's MoE block alone on the card and on the CPU for a 32-token
+   chunk and a decode step (identical expert ids, queue positions and
+   ``fits``; outputs within phase 5's first-layer tolerance); and a
+   replayed decode step against the expert stacks' dequantization
+   alone;
+9. gemma2-9b whole at full width (42 layers, d_model 3584, 16/8 heads of
+   256, d_ff 14336, vocab 256000, tied; local/global attention,
+   softcaps, zero-centered RMSNorm, post norms, GeGLU) under
+   ``int4_serving``, prepared the same way, 4 requests at decode_block
+   1 and 4 graphed against eager, identical streams, exactly 7 x 42
+   ``fused_dequant_mm`` launches per decode step, and a replayed decode
+   step's time.
+
+Phases 8 and 9 assert that f32 matmuls do not run on TF32 (a TF32
+router moves expert selection); each phase frees its model before the
+next.
 
 Any failure raises and exits non-zero. The line before the last is
 ``{"kernels": [...]}`` (the kernel table), the last line
@@ -89,7 +120,8 @@ the repository around it, it exits non-zero before printing either.
 ``--report`` also writes every number to a JSON file; ``--profile``
 adds a torch.profiler breakdown of one decode block, replayed from its
 graph and run eagerly, under ``int4_serving`` (phase 3),
-``fidelity_int8`` fused (phase 4) and ``fidelity_fp16_ipu`` (phase 6).
+``fidelity_int8`` fused (phase 4), ``fidelity_fp16_ipu`` (phase 6) and
+``int4_serving`` for qwen3-moe and gemma2 (phases 8 and 9).
 """
 import argparse
 import dataclasses
@@ -1269,6 +1301,80 @@ def _time_mpmm(gen, rates, cfg):
     return out
 
 
+# the projection shapes of the two models phases 8 and 9 serve (K, N)
+NEW_SHAPES = (
+    ("gemma2-9b", (("wq", 3584, 4096), ("wk", 3584, 2048),
+                   ("wv", 3584, 2048), ("wo", 4096, 3584),
+                   ("w_gate", 3584, 14336), ("w_up", 3584, 14336),
+                   ("w_down", 14336, 3584))),
+    ("qwen3-moe-30b-a3b", (("wq", 2048, 4096), ("wk", 2048, 512),
+                           ("wv", 2048, 512), ("wo", 4096, 2048))),
+)
+
+
+def _check_new_shapes(gen, cfg, err):
+    """Every kernel against its plain version at the projection shapes
+    of gemma2-9b and qwen3-moe-30b-a3b (head_dim 256 and 128, K and N up
+    to 14336), M in {8, 256}: ``fused_dequant_mm`` over int4_packed and
+    int8 under each act step within 2 gamma_K, ``fused_qmm`` (int8 and
+    int4_packed), ``qmm`` and ``qmm_packed`` bit-equal; ``mp_matmul``
+    bit-equal at gemma2's wk at M = 8. Returns (comparisons, each
+    shape's launch plans)."""
+    from repro_torch.kernels import fused, mpmm, ops, qmm, ref
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    plans, n_cmp = {}, 0
+    for arch, layer in NEW_SHAPES:
+        for name, k, n in layer:
+            for m in (8, 256):
+                x = torch.randn((m, k), generator=gen, device="cuda") * 2
+                sa = (x.abs().amax() / 127).reshape(())
+                a = ref.quantize_act_ref(x, sa).to(torch.int8)
+                shape = {}
+                what = f"{arch} {name} {(m, k, n)}"
+                for kind in ("int4_packed", "int8"):
+                    w, sw = _stored(gen, k, n, kind)
+                    for act in fused.ACTS:
+                        _, diff = _fd_same(x, w, sw, sa, kind, act, what)
+                        err["fused_dequant_mm"] = max(
+                            err["fused_dequant_mm"], diff)
+                        n_cmp += 1
+                    slices = fused.k_slices(m, k, 1, kind)
+                    shape[f"fused_dequant_mm/{kind}"] = {
+                        "k_slices": slices,
+                        "plans": [fused.plan_fused_dequant(
+                            m, n, k1 - k0, 1, kind, sms)._asdict()
+                            for k0, k1 in slices]}
+                    packed = kind == "int4_packed"
+                    pairs = [("fused_qmm", kind, lambda be: (
+                        ops.fused_quantized_matmul(x, w, sw, sa, kind=kind,
+                                                   backend=be)))]
+                    pairs.append(("qmm_packed", kind, lambda be: (
+                        ops.int4_matmul_packed(a, w, backend=be)))
+                                 if packed else ("qmm", kind, lambda be: (
+                                     ops.int8_matmul(a, w, backend=be))))
+                    for kname, kk, call in pairs:
+                        if not torch.equal(call("kernel"), call("ref")):
+                            raise AssertionError(
+                                f"{kname} {kk} {what}: not bit-equal to "
+                                f"its plain version")
+                        n_cmp += 1
+                    shape[f"fused_qmm/{kind}"] = qmm.plan_int_tc(
+                        m, n, k, packed, sms)._asdict()
+                    if packed:
+                        shape["qmm_packed"] = qmm.plan_int_tc(
+                            m, n, k, True, sms)._asdict()
+                    else:
+                        shape["qmm"] = qmm.plan_qmm(m, n, k, sms)._asdict()
+                plans[f"{arch}/{name}/M{m}"] = shape
+    m, (_, k, n) = 8, NEW_SHAPES[0][1][1]
+    a16, b16 = _mp_operands(gen, m, k, n)
+    _mp_same(a16, b16, cfg, False, f"gemma2-9b wk {(m, k, n)}")
+    plans[f"gemma2-9b/wk/M{m}"]["mp_matmul"] = mpmm.plan_mpmm(
+        m, n, k, cfg.n, sms)._asdict()
+    torch.cuda.synchronize()
+    return n_cmp + 1, plans
+
+
 def phase_kernels(rates):
     from repro_torch.core.policy import get_policy
     gen = torch.Generator(device="cuda")
@@ -1280,6 +1386,9 @@ def phase_kernels(rates):
     n_qmm = _check_qmm(gen)
     n_int_tc = _check_int_tc(gen)
     n_cmp += n_fd + n_qmm + n_int_tc + _check_mpmm(gen, fidelity)
+    n_new, new_plans = _check_new_shapes(gen, fidelity, err)
+    print("phase 2 plans at the gemma2-9b and qwen3-moe-30b-a3b shapes: "
+          + json.dumps(new_plans), flush=True)
     qmm_plans = _time_qmm_plans(gen)
     fused_qmm_plans = {kind: _time_int_tc_plans(gen, "fused_qmm", kind)
                        for kind in ("int8", "int4_packed")}
@@ -1293,8 +1402,9 @@ def phase_kernels(rates):
           f"{timing['mp_matmul']['exact_false_f32_matmul_ms']:.3f} ms over "
           f"the decode step's projections, mp_matmul "
           f"{timing['mp_matmul']['ms']:.3f} ms", flush=True)
-    log(2, comparisons=n_cmp, qmm_comparisons=n_qmm,
+    log(2, comparisons=n_cmp + n_new, qmm_comparisons=n_qmm,
         int_tc_comparisons=n_int_tc, fused_dequant_comparisons=n_fd,
+        new_shape_comparisons=n_new, new_shape_plans=new_plans,
         max_abs_err=err, timing=timing, qmm_plans_us=qmm_plans,
         fused_qmm_plans_us=fused_qmm_plans, qmm_packed_plans_us=packed_plans,
         fused_dequant_plans_us=fd_plans)
@@ -1384,21 +1494,24 @@ def _serve(cfg, api, params, config, reqs, eng=None, eager=False):
     return eng, {r.rid: list(r.tokens) for r in reqs}, numbers
 
 
-def _graphs_vs_eager(cfg, api, params, config, make_reqs, results, key):
+def _graphs_vs_eager(cfg, api, params, config, make_reqs, results, key,
+                     eager_probe=None):
     """One route three ways: a new engine's first wave (captures), the
     same requests again on it (replays only), and a new engine's eager
-    wave. Holds all three to the same streams and the same kernel
-    launches, and the second wave to no capture. Returns (the graphed
-    engine, its streams)."""
+    wave (inside ``eager_probe``, a context manager, where given). Holds
+    all three to the same streams and the same kernel launches, and the
+    second wave to no capture. Returns (the graphed engine, its
+    streams)."""
+    import contextlib
     eng, streams, results[key] = _serve(cfg, api, params, config,
                                         make_reqs())
     _, warm, results[f"{key}_warm"] = _serve(cfg, api, params, config,
                                              make_reqs(), eng=eng)
     eager_config = dataclasses.replace(config,
                                        act_calibration=eng.act_scales)
-    _, eager, results[f"{key}_eager"] = _serve(cfg, api, params,
-                                               eager_config, make_reqs(),
-                                               eager=True)
+    with eager_probe or contextlib.nullcontext():
+        _, eager, results[f"{key}_eager"] = _serve(
+            cfg, api, params, eager_config, make_reqs(), eager=True)
     if not (streams == warm == eager):
         raise AssertionError(f"{key}: the graphed waves and the eager wave "
                              f"give different streams")
@@ -1829,10 +1942,7 @@ def _plan_replica(rep):
     """The plan replica's checks: routing, the scales it took, and one
     decode step's launches (``fused_dequant_mm`` once per int8
     projection, nothing else)."""
-    import contextlib
     from repro_torch.autotune.plan import load_act_scales
-    from repro_torch.kernels import ops
-    from repro_torch.serving.graphs import count_delta
     eng = rep.engine
     routes = {p.rsplit("/", 1)[1]: m for p, m in eng.routing_report().items()}
     if routes != PLAN_ROUTES or not eng.fused:
@@ -1841,14 +1951,7 @@ def _plan_replica(rep):
     if eng.act_scales != load_act_scales(PLAN_FILE):
         raise AssertionError("act_calibration='auto' did not take the "
                              "plan's scales")
-    before = ops.launch_counts()
-    eng._trace_decode(contextlib.nullcontext)
-    torch.cuda.synchronize()
-    step = count_delta(before, ops.launch_counts())
-    want = {"fused_dequant_mm": 6 * eng.cfg.n_layers}
-    if step != want:
-        raise AssertionError(f"one decode step launched {step}, want "
-                             f"{want}")
+    step = _step_launches(eng, {"fused_dequant_mm": 6 * eng.cfg.n_layers})
     return routes, step, dict(eng.act_scales)
 
 
@@ -2042,6 +2145,293 @@ def phase_fleet(params, cfg_full):
     return launches
 
 
+# ------------------------------------------------------ phases 8 and 9
+
+def _free():
+    import gc
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def _no_tf32():
+    """The f32 router and head must not run on TF32: a TF32 router
+    moves expert selection."""
+    if (torch.backends.cuda.matmul.allow_tf32
+            or torch.get_float32_matmul_precision() != "highest"):
+        raise AssertionError("f32 matmuls may run on TF32")
+
+
+def _step_launches(eng, want):
+    """One decode step of ``eng``'s program, its launches against
+    ``want``."""
+    import contextlib
+    from repro_torch.kernels import ops
+    from repro_torch.serving.graphs import count_delta
+    before = ops.launch_counts()
+    eng._trace_decode(contextlib.nullcontext)
+    torch.cuda.synchronize()
+    step = count_delta(before, ops.launch_counts())
+    if step != want:
+        raise AssertionError(f"{eng.cfg.arch_id}: one decode step launched "
+                             f"{step}, want {want}")
+    return step
+
+
+def _prepared_engine(cfg, api, config):
+    """Random f32 weights from seed 0, one engine to calibrate and
+    prepare them, and then only its prepared tree: the raw projection
+    weights (the f32 expert stacks among them) are released. Returns
+    (prepared tree, act scales, memory numbers)."""
+    from repro_torch.models import registry
+    from repro_torch.serving.engine import ServingEngine
+    torch.cuda.reset_peak_memory_stats()
+    params = registry.init_params(cfg, seed=0)
+    torch.cuda.synchronize()
+    raw = torch.cuda.memory_allocated()
+    eng = ServingEngine(cfg, api, params, config=config)
+    if eng.weight_quant_trace_count():
+        raise AssertionError("the prepared engine quantizes weights")
+    prepared, scales = eng.params, eng.act_scales
+    del eng, params
+    _free()
+    return prepared, scales, {
+        "allocated_raw_params": raw,
+        "allocated_prepared_only": torch.cuda.memory_allocated(),
+        "max_allocated_preparing": torch.cuda.max_memory_allocated()}
+
+
+def _serve_both_blocks(cfg, api, prepared, scales, make_reqs, step_want,
+                       results, eager_probe=None, profile=False):
+    """The prepared model served at decode_block 1 and 4, each a first
+    (capturing) wave, a warm wave and an eager wave; identical streams
+    everywhere, the same kernel launches graphed and eager, and one
+    decode step's launches equal to ``step_want`` (``profile``: and a
+    profile of one decode block, replayed and eager, into
+    ``results["profile"]``). Returns the launches of all six waves, the
+    steps checked and the profiled blocks."""
+    from repro_torch.kernels import ops
+    from repro_torch.serving import EngineConfig
+    streams = {}
+    ops.reset_launch_counts()
+    for blk in (1, 4):
+        config = EngineConfig(batch_slots=8, cache_len=256, prefill_chunk=32,
+                              decode_block=blk, act_calibration=scales,
+                              fused_executors="on")
+        eng, streams[blk] = _graphs_vs_eager(
+            cfg, api, prepared, config, make_reqs, results, f"block{blk}",
+            eager_probe=eager_probe if blk == 1 else None)
+        if not eng.fused or eng.weight_quant_trace_count() \
+                or eng.staged_trace_count():
+            raise AssertionError(f"{cfg.arch_id}: not the fused path")
+        results[f"block{blk}"]["step_launches"] = _step_launches(
+            eng, step_want)
+        if profile and blk == 4:
+            results["profile"] = _profile(eng, cfg)
+        del eng
+        _free()
+    launches = ops.launch_counts()
+    if streams[1] != streams[4]:
+        raise AssertionError(f"{cfg.arch_id}: greedy streams differ "
+                             f"between decode_block 1 and 4")
+    if {k for k, v in launches.items() if v} != set(step_want):
+        raise AssertionError(f"{cfg.arch_id} launched {launches}")
+    return launches
+
+
+class _DropCount:
+    """While open, counts on the card (no host sync) the (token, k)
+    assignments ``layers.moe.route`` drops at capacity and all it makes,
+    over every call with more than one token per group (prefill)."""
+
+    def __enter__(self):
+        from repro_torch.layers import moe
+        self.moe, self.real = moe, moe.route
+        self.counts = torch.zeros(2, dtype=torch.int64, device="cuda")
+
+        def route(params, cfg, x):
+            out = self.real(params, cfg, x)
+            if x.shape[1] > 1:
+                fits = out[4]
+                self.counts[0] += (~fits).sum()
+                self.counts[1] += fits.numel()
+            return out
+        moe.route = route
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.route = self.real
+        self.dropped, self.assigned = (int(v) for v in self.counts.tolist())
+
+
+def _moe_layer_card_vs_cpu(cfg, prepared):
+    """Layer 0's MoE block alone at full width, on the card (its prepared
+    experts) and on the CPU (a copy), for a 32-token chunk of two rows
+    and a decode step of eight: expert ids, queue positions and ``fits``
+    identical, outputs within phase 5's first-layer tolerance."""
+    from repro_torch.convert import tree_to
+    from repro_torch.core.policy import get_policy
+    from repro_torch.layers import moe
+    from repro_torch.models.lm import layer_tree, moe_cfg
+    mcfg = moe_cfg(cfg)
+    policy = get_policy(cfg.precision_policy)
+    card = layer_tree(prepared["blocks"]["b0"]["moe"], 0)
+    cpu = tree_to(card, "cpu")
+    rng = np.random.default_rng(8)
+    out = {}
+    for what, shape in (("chunk", (2, 32, cfg.d_model)),
+                        ("decode", (8, 1, cfg.d_model))):
+        x = torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)
+                             ).to(torch.bfloat16)
+        got = {}
+        for where, tree, xx in (("card", card, x.cuda()), ("cpu", cpu, x)):
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                _, ids, _, pos, fits, cap = moe.route(tree, mcfg, xx)
+                y, aux = moe.forward(tree, mcfg, xx, policy, "block/moe")
+            if where == "card":
+                torch.cuda.synchronize()
+            got[where] = [t.cpu() for t in (ids, pos, fits, y, aux)] + [
+                time.perf_counter() - t0]
+        (ic, pc, fc, yc, ac, tc), (ip, pp, fp, yp, ap, tp) = (
+            got["card"], got["cpu"])
+        for name, a, b in (("expert ids", ic, ip), ("queue positions", pc,
+                                                    pp), ("fits", fc, fp)):
+            if not torch.equal(a, b):
+                raise AssertionError(f"MoE {what}: {name} differ between "
+                                     f"the card and the CPU")
+        yc, yp = yc.double(), yp.double()
+        rel = float(torch.sqrt(((yc - yp) ** 2).mean() / (yp ** 2).mean()))
+        if not bool(torch.isfinite(yc).all()) or rel > FIRST_LAYER_REL_RMS:
+            raise AssertionError(f"MoE {what}: card vs CPU relative RMS "
+                                 f"{rel} (tolerance {FIRST_LAYER_REL_RMS})")
+        out[what] = {"shape": list(shape), "capacity": cap,
+                     "dropped": int((~fp).sum()), "assignments": fp.numel(),
+                     "y_rel_rms": rel,
+                     "y_max_abs_diff": float((yc - yp).abs().max()),
+                     "aux_card": float(ac), "aux_cpu": float(ap),
+                     "card_s": tc, "cpu_s": tp}
+    return out
+
+
+def _decode_step_ms(cfg, prepared, batch):
+    """One decode step of ``batch`` rows (fused executors) replayed from
+    a CUDA graph; for an MoE model also, timed the same way, what the
+    step spends dequantizing every expert stack of every layer to bf16
+    (``layers.moe.expert_weights``, as the forward does)."""
+    from repro_torch.core.policy import get_policy
+    from repro_torch.layers import moe
+    from repro_torch.layers.mplinear import executor_variant
+    from repro_torch.models import lm
+    from repro_torch.models.lm import layer_tree
+    caches = lm.init_cache(cfg, batch, 256)
+    tok = torch.zeros((batch, 1), dtype=torch.int32, device="cuda")
+    pos = torch.full((batch,), 40, dtype=torch.int32, device="cuda")
+
+    def step():
+        with executor_variant("fused"):
+            lm.decode_step(prepared, cfg, tok, pos, caches)
+
+    with torch.no_grad():
+        out = {"rows": batch, "decode_step_ms": graph_ms(step, reps=5)}
+    if cfg.moe:
+        spec = get_policy(cfg.precision_policy).spec_for(
+            "block/moe/experts")
+        stacks = prepared["blocks"]["b0"]["moe"]
+        groups = cfg.n_layers // len(lm.group_kinds(cfg))
+
+        def dequant():
+            for i in range(groups):
+                for n in ("w_gate", "w_up", "w_down"):
+                    moe.expert_weights(layer_tree(stacks[n]["w"], i),
+                                       spec).to(torch.bfloat16)
+
+        with torch.no_grad():
+            out["expert_dequant_ms"] = graph_ms(dequant, reps=5)
+        out["expert_dequant_share"] = out["expert_dequant_ms"] / out[
+            "decode_step_ms"]
+    del caches
+    _free()
+    return out
+
+
+QWEN3_MOE_LAYERS = 16
+
+
+def phase_moe(smi, profile):
+    """qwen3-moe-30b-a3b at full width (16 of its 48 layers) under
+    int4_serving with calibrated act scales and the fused executors."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import registry
+    from repro_torch.serving import EngineConfig
+    _no_tf32()
+    t_phase = time.perf_counter()
+    full = get_config("qwen3-moe-30b-a3b")
+    cfg = dataclasses.replace(full, n_layers=QWEN3_MOE_LAYERS,
+                              precision_policy="int4_serving")
+    api = registry.build(cfg)
+    prepared, scales, memory = _prepared_engine(
+        cfg, api, EngineConfig(batch_slots=8, cache_len=256,
+                               prefill_chunk=32, act_calibration="auto",
+                               fused_executors="on"))
+    results = {}
+    torch.cuda.reset_peak_memory_stats()
+    drops = _DropCount()
+    launches = _serve_both_blocks(
+        cfg, api, prepared, scales,
+        lambda: _requests(cfg, 8, 8, 64, 8, seed=21),
+        {"fused_dequant_mm": 4 * cfg.n_layers}, results, eager_probe=drops,
+        profile=profile)
+    memory["max_allocated_serving"] = torch.cuda.max_memory_allocated()
+    memory["reserved_after"] = _reserved_after()
+    layer0 = _moe_layer_card_vs_cpu(cfg, prepared)
+    step = _decode_step_ms(cfg, prepared, 8)
+    log(8, card=smi, arch=cfg.arch_id, layers=cfg.n_layers,
+        reduced={"n_layers": f"{full.n_layers} -> {cfg.n_layers}: 48 "
+                 f"layers of f32 parameters are about 122 GB"},
+        launches=launches, runs=results, memory=memory,
+        prefill_dropped={"dropped": drops.dropped,
+                         "assignments": drops.assigned,
+                         "wave": "block1_eager, padded positions included"},
+        layer0_card_vs_cpu=layer0, decode_step=step,
+        phase_s=time.perf_counter() - t_phase)
+    del prepared
+    _free()
+    return launches
+
+
+def phase_gemma2(smi, profile):
+    """gemma2-9b whole (42 layers) at full width under int4_serving with
+    calibrated act scales and the fused executors."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import registry
+    from repro_torch.serving import EngineConfig
+    _no_tf32()
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(get_config("gemma2-9b"),
+                              precision_policy="int4_serving")
+    api = registry.build(cfg)
+    prepared, scales, memory = _prepared_engine(
+        cfg, api, EngineConfig(batch_slots=8, cache_len=256,
+                               prefill_chunk=32, act_calibration="auto",
+                               fused_executors="on"))
+    results = {}
+    torch.cuda.reset_peak_memory_stats()
+    launches = _serve_both_blocks(
+        cfg, api, prepared, scales,
+        lambda: _requests(cfg, 4, 8, 64, 8, seed=22),
+        {"fused_dequant_mm": 7 * cfg.n_layers}, results, profile=profile)
+    memory["max_allocated_serving"] = torch.cuda.max_memory_allocated()
+    memory["reserved_after"] = _reserved_after()
+    step = _decode_step_ms(cfg, prepared, 8)
+    log(9, card=smi, arch=cfg.arch_id, layers=cfg.n_layers,
+        launches=launches, runs=results, memory=memory, decode_step=step,
+        phase_s=time.perf_counter() - t_phase)
+    del prepared
+    _free()
+    return launches
+
+
 # ---------------------------------------------------------------- main
 
 KERNELS = {
@@ -2064,7 +2454,7 @@ def main():
                     "JSON file")
     ap.add_argument("--profile", action="store_true",
                     help="profile one decode block, replayed from its "
-                    "graph and run eagerly, in phases 3, 4 and 6")
+                    "graph and run eagerly, in phases 3, 4, 6, 8 and 9")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke test needs one",
@@ -2096,10 +2486,15 @@ def main():
     phase_card_vs_cpu(params, cfg, scales8)
     launches6 = phase_fidelity(params, cfg, args.profile)
     launches7 = phase_fleet(params, cfg)
+    del params
+    _free()
+    launches8 = phase_moe(smi, args.profile)
+    launches9 = phase_gemma2(smi, args.profile)
 
     main_launches = {
         "fused_dequant_mm": launches3["fused_dequant_mm"]
-        + launches7["fused_dequant_mm"],
+        + launches7["fused_dequant_mm"] + launches8["fused_dequant_mm"]
+        + launches9["fused_dequant_mm"],
         "fused_qmm": launches4["fidelity_int8"]["fused_qmm"]
         + launches4["int4_exact"]["fused_qmm"],
         "qmm": launches4["fidelity_int8"]["qmm"],

@@ -2,9 +2,11 @@
 
 ``ModelConfig``/``MoESpec``/``InputShape`` mirror ``repro/configs/base.py``
 field for field; ``get_config`` knows the architectures this port serves
-so far (qwen2-0.5b, ``repro/configs/qwen2_0_5b.py``) and ``reduced``
-repeats ``repro/configs/__init__.py::reduced`` (the family-preserving
-tiny variant the CPU tests run).
+so far, the reference's ``lm`` family (``repro/configs/<arch>.py``:
+qwen2-0.5b, gemma2-9b, glm4-9b, stablelm-12b, mixtral-8x7b and
+qwen3-moe-30b-a3b), and ``reduced`` repeats
+``repro/configs/__init__.py::reduced`` (the family-preserving tiny
+variant the CPU tests run).
 """
 from __future__ import annotations
 
@@ -24,7 +26,7 @@ class MoESpec:
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     """One architecture. ``family`` selects the model implementation;
-    the port implements the dense 'lm' family so far."""
+    the port implements the 'lm' family (dense and MoE) so far."""
 
     arch_id: str
     family: str
@@ -91,7 +93,76 @@ def qwen2_0_5b() -> ModelConfig:
         attn_pattern="full", tied_embeddings=True)
 
 
-_CONFIGS = {"qwen2-0.5b": qwen2_0_5b}
+def gemma2_9b() -> ModelConfig:
+    """Gemma-2 9B [arXiv:2408.00118; hf:google/gemma-2-9b]: 42L, d_model
+    3584, 16 heads (GQA kv=8, head_dim 256), d_ff 14336, vocab 256000.
+    Alternating local(4096)/global attention, logit softcap 30, attention
+    softcap 50, GeGLU, zero-centered RMSNorm with pre+post block norms,
+    query scale 1/sqrt(256), tied embeddings."""
+    return ModelConfig(
+        arch_id="gemma2-9b", family="lm", n_layers=42, d_model=3584,
+        n_heads=16, n_kv_heads=8, head_dim=256, d_ff=14336, vocab=256000,
+        norm="rms_zc", act="gelu_tanh", attn_pattern="alt_local_global",
+        window=4096, logit_softcap=30.0, attn_softcap=50.0,
+        post_norms=True,
+        attn_scale=0.0625,  # 1/sqrt(query_pre_attn_scalar=256)
+        tied_embeddings=True)
+
+
+def glm4_9b() -> ModelConfig:
+    """GLM-4 9B [hf:THUDM/glm-4-9b]: 40L, d_model 4096, 32 heads (GQA
+    kv=2, head_dim 128), d_ff 13696, vocab 151552. QKV bias, partial
+    rotary (50%, GLM 2D RoPE approximated as half-rotary), RMSNorm,
+    SwiGLU, untied."""
+    return ModelConfig(
+        arch_id="glm4-9b", family="lm", n_layers=40, d_model=4096,
+        n_heads=32, n_kv_heads=2, head_dim=128, d_ff=13696, vocab=151552,
+        qkv_bias=True, norm="rms", act="silu", rotary_pct=0.5,
+        attn_pattern="full", tied_embeddings=False)
+
+
+def stablelm_12b() -> ModelConfig:
+    """StableLM-2 12B [hf:stabilityai/stablelm-2-12b; arXiv:2402.17834]:
+    40L, d_model 5120, 32 heads (GQA kv=8, head_dim 160), d_ff 13824,
+    vocab 100352. LayerNorm, partial rotary (25%), SwiGLU, untied."""
+    return ModelConfig(
+        arch_id="stablelm-12b", family="lm", n_layers=40, d_model=5120,
+        n_heads=32, n_kv_heads=8, head_dim=160, d_ff=13824, vocab=100352,
+        norm="ln", act="silu", rotary_pct=0.25, attn_pattern="full",
+        tied_embeddings=False)
+
+
+def mixtral_8x7b() -> ModelConfig:
+    """Mixtral 8x7B [arXiv:2401.04088; hf:mistralai/Mixtral-8x7B-v0.1]:
+    32L, d_model 4096, 32 heads (GQA kv=8, head_dim 128), vocab 32000,
+    MoE: 8 experts, top-2, d_expert 14336. Sliding-window attention
+    (4096) bounds the KV cache."""
+    return ModelConfig(
+        arch_id="mixtral-8x7b", family="lm", n_layers=32, d_model=4096,
+        n_heads=32, n_kv_heads=8, head_dim=128, d_ff=14336, vocab=32000,
+        norm="rms", act="silu", rope_theta=1e6, attn_pattern="swa",
+        window=4096, moe=MoESpec(n_experts=8, top_k=2, d_expert=14336),
+        tied_embeddings=False)
+
+
+def qwen3_moe_30b_a3b() -> ModelConfig:
+    """Qwen3-MoE 30B-A3B [hf:Qwen/Qwen3-30B-A3B]: 48L, d_model 2048, 32
+    heads (GQA kv=4, head_dim 128), vocab 151936, MoE: 128 experts,
+    top-8, d_expert 768. QK-norm, no QKV bias, full attention, rope
+    1e6."""
+    return ModelConfig(
+        arch_id="qwen3-moe-30b-a3b", family="lm", n_layers=48, d_model=2048,
+        n_heads=32, n_kv_heads=4, head_dim=128, d_ff=768, vocab=151936,
+        norm="rms", act="silu", qk_norm=True, rope_theta=1e6,
+        attn_pattern="full",
+        moe=MoESpec(n_experts=128, top_k=8, d_expert=768),
+        tied_embeddings=False)
+
+
+_CONFIGS = {"qwen2-0.5b": qwen2_0_5b, "gemma2-9b": gemma2_9b,
+            "glm4-9b": glm4_9b, "stablelm-12b": stablelm_12b,
+            "mixtral-8x7b": mixtral_8x7b,
+            "qwen3-moe-30b-a3b": qwen3_moe_30b_a3b}
 ARCH_IDS = tuple(_CONFIGS)
 
 

@@ -1,13 +1,15 @@
-"""Decoder-only transformer LM, dense path (mirror of
-``repro/models/lm.py``).
+"""Decoder-only transformer LM (mirror of ``repro/models/lm.py``): the
+dense and MoE configurations of the ``lm`` family (qwen2, gemma2,
+glm4, stablelm, mixtral, qwen3-moe).
 
 The parameter tree keeps the reference's paths and layout, including
 the stacked leading group axis of every ``params["blocks"]["b<i>"]``
 leaf, so weights convert leaf by leaf. The reference's ``lax.scan`` over
 that axis is a Python loop here; its activation-sharding pins mean
 nothing on one GPU and are gone. KV caches are stacked the same way and
-updated in place (``layers.attention``). MoE blocks wait for a later
-slice.
+updated in place (``layers.attention``). An MoE block holds a ``"moe"``
+subtree where a dense one holds ``"mlp"``; serving drops the MoE
+layer's load-balancing loss, as the reference's serving entry points do.
 """
 from __future__ import annotations
 
@@ -19,7 +21,7 @@ import torch
 from repro_torch.configs import ModelConfig
 from repro_torch.core.policy import get_policy
 from repro_torch.device import resolve_device
-from repro_torch.layers import attention, mlp
+from repro_torch.layers import attention, mlp, moe
 from repro_torch.layers.attention import AttnConfig, KVCache
 from repro_torch.layers.common import (apply_norm, dense_init, embed_init,
                                        norm_init, softcap)
@@ -46,10 +48,10 @@ def attn_cfg(cfg: ModelConfig, kind: str) -> AttnConfig:
         attn_softcap=cfg.attn_softcap, causal=True, scale=cfg.attn_scale)
 
 
-def _check_dense(cfg: ModelConfig):
-    if cfg.moe:
-        raise NotImplementedError(
-            f"{cfg.arch_id}: MoE blocks wait for a later slice of the port")
+def moe_cfg(cfg: ModelConfig) -> moe.MoEConfig:
+    return moe.MoEConfig(cfg.d_model, cfg.moe.d_expert, cfg.moe.n_experts,
+                         cfg.moe.top_k, cfg.moe.capacity_factor, cfg.act,
+                         dispatch=cfg.moe.dispatch)
 
 
 def _block_init(gen, cfg: ModelConfig, kind: str, device, dtype, lead):
@@ -57,8 +59,11 @@ def _block_init(gen, cfg: ModelConfig, kind: str, device, dtype, lead):
         "ln1": norm_init(cfg.norm, cfg.d_model, device, dtype, lead),
         "attn": attention.init(gen, attn_cfg(cfg, kind), device, dtype, lead),
         "ln2": norm_init(cfg.norm, cfg.d_model, device, dtype, lead),
-        "mlp": mlp.init(gen, cfg.d_model, cfg.d_ff, device, dtype, lead),
     }
+    if cfg.moe:
+        p["moe"] = moe.init(gen, moe_cfg(cfg), device, dtype, lead)
+    else:
+        p["mlp"] = mlp.init(gen, cfg.d_model, cfg.d_ff, device, dtype, lead)
     if cfg.post_norms:
         p["post_ln1"] = norm_init(cfg.norm, cfg.d_model, device, dtype, lead)
         p["post_ln2"] = norm_init(cfg.norm, cfg.d_model, device, dtype, lead)
@@ -70,7 +75,6 @@ def init(cfg: ModelConfig, seed: int = 0, device=None):
     device: truncated normal at +-3 sigma times 1/sqrt(d_in), and
     d**-0.5 for the embedding (the reference's distribution, not its
     bits). Defaults to the CUDA device; pass ``device="cpu"`` for CPU."""
-    _check_dense(cfg)
     device = resolve_device(device)
     dtype = getattr(torch, cfg.param_dtype)
     kinds = group_kinds(cfg)
@@ -149,7 +153,11 @@ def _apply_block(params, cfg: ModelConfig, kind: str, x, positions, policy,
         a = apply_norm(cfg.norm, a, params["post_ln1"])
     x = x + a
     h = apply_norm(cfg.norm, x, params["ln2"])
-    f = mlp.forward(params["mlp"], h, policy, "block/mlp", cfg.act)
+    if cfg.moe:
+        f, _ = moe.forward(params["moe"], moe_cfg(cfg), h, policy,
+                           "block/moe")
+    else:
+        f = mlp.forward(params["mlp"], h, policy, "block/mlp", cfg.act)
     if cfg.post_norms:
         f = apply_norm(cfg.norm, f, params["post_ln2"])
     return x + f
@@ -157,7 +165,6 @@ def _apply_block(params, cfg: ModelConfig, kind: str, x, positions, policy,
 
 def _run_blocks(params, cfg: ModelConfig, x, positions, mode: str, caches,
                 pos=None, valid=None):
-    _check_dense(cfg)
     policy = get_policy(cfg.precision_policy)
     kinds = group_kinds(cfg)
     for gi in range(cfg.n_layers // len(kinds)):

@@ -118,8 +118,6 @@ def _resolved_groups(k: int, spec: PrecisionSpec) -> int:
 
 
 def _quantize_spec(w: torch.Tensor, spec: PrecisionSpec):
-    from repro_torch.layers.mplinear import note_weight_quant
-    note_weight_quant()
     wf = w.to(torch.float32)
     k, n = w.shape[-2:]
     groups = _resolved_groups(k, spec)
@@ -144,21 +142,35 @@ def prepare_weight(w, spec: PrecisionSpec, act_scale: Optional[float] = None):
         return w
     if spec.mode == "fp16_ipu":
         return PreparedWeight(w.to(torch.float16), None, "fp16")
+    from repro_torch.layers.mplinear import note_weight_quant
+    note_weight_quant()
     a = None if act_scale is None else torch.full(
         w.shape[:-2], act_scale, dtype=torch.float32, device=w.device)
+    if w.dim() > 2:
+        # a stacked leaf one leading index at a time: each slice
+        # quantizes alone along -2, so the codes and scales are the
+        # whole stack's, and the temporaries are one slice's (a stacked
+        # qwen3-moe expert leaf holds 12.9 GB of f32)
+        parts = [_storage(wi, spec) for wi in w]
+        data = torch.stack([d for d, _, _ in parts])
+        scale = torch.stack([sc for _, sc, _ in parts])
+        return PreparedWeight(data, scale, parts[0][2], a)
+    return PreparedWeight(*_storage(w, spec), a)
+
+
+def _storage(w: torch.Tensor, spec: PrecisionSpec):
+    """(stored data, scales, kind) of one weight (..., d_in, d_out)."""
+    from repro_torch.kernels import ops as kops
     q, s = _quantize_spec(w, spec)
     even_k = w.shape[-2] % 2 == 0
-    from repro_torch.kernels import ops as kops
     if spec.mode == "fp8":
-        return PreparedWeight(q, s, "fp8", a)
+        return q, s, "fp8"
     if spec.mode == "fp4":
-        if even_k:
-            return PreparedWeight(kops.pack_u4(q), s, "fp4_packed", a)
-        return PreparedWeight(q, s, "fp4", a)
+        return (kops.pack_u4(q), s, "fp4_packed") if even_k \
+            else (q, s, "fp4")
     if spec.weight_bits == 4 and even_k:
-        return PreparedWeight(kops.pack_int4(q), s, "int4_packed", a)
-    return PreparedWeight(q, s, "int8" if spec.weight_bits == 8 else "int4",
-                          a)
+        return kops.pack_int4(q), s, "int4_packed"
+    return q, s, "int8" if spec.weight_bits == 8 else "int4"
 
 
 PathResolver = Union[Callable[[str], Optional[str]], Mapping[str, str]]

@@ -1,6 +1,6 @@
 """The JAX reference's outputs for the torch parity tests.
 
-Run as ``python tests/_jax_reference.py <task> <out.pkl>`` by
+Run as ``python tests/_jax_reference.py <task> <out.pkl> [<arch>]`` by
 ``_torch_parity.reference``, in a subprocess whose ``XLA_FLAGS`` carry
 ``--xla_allow_excess_precision=false``. XLA's default lets a fused
 computation skip the bf16 roundings the reference's code asks for
@@ -11,7 +11,10 @@ read once, when JAX starts its backend, so it cannot be set inside the
 test process without changing every other JAX test there.
 
 Each task returns plain dicts of numpy arrays and Python values; the
-caller reads them back with pickle (a file this script just wrote).
+caller reads them back with pickle (a file this script just wrote). The
+optional ``<arch>`` sets ``ARCH`` (qwen2-0.5b by default) for the task:
+``arch`` computes everything ``tests/test_torch_archs.py`` compares for
+one architecture in one process.
 """
 import dataclasses
 import os
@@ -49,20 +52,30 @@ def task_lm():
     """Per policy and executor variant: prefill logits and caches, then a
     chunked prefill into a live cache and three greedy decode steps."""
     import jax
-    import jax.numpy as jnp
 
     from repro.configs import reduced
+    from repro.models import registry
+
+    os.environ["REPRO_FUSED_BACKEND"] = "xla"
+    base = reduced(ARCH)
+    params = registry.build(base).init(jax.random.PRNGKey(0))
+    out = {"params": _np_tree(params), "cases": {}, "eager_scales": {}}
+    _lm_cases(base, params, LM_POLICIES, out)
+    return out
+
+
+def _lm_cases(base, params, policies, out):
+    """``task_lm``'s cases for ``policies`` into ``out``."""
+    import jax
+    import jax.numpy as jnp
+
     from repro.core.policy import get_policy
     from repro.layers.mplinear import executor_variant
     from repro.models import registry
     from repro.quant.calibrate import calibrate_act_scales
 
-    os.environ["REPRO_FUSED_BACKEND"] = "xla"
-    base = reduced(ARCH)
-    params = registry.build(base).init(jax.random.PRNGKey(0))
     inp = lm_inputs()
-    out = {"params": _np_tree(params), "cases": {}, "eager_scales": {}}
-    for pol in LM_POLICIES:
+    for pol in policies:
         cfg = dataclasses.replace(base, precision_policy=pol)
         api = registry.build(cfg)
         scales = None
@@ -104,7 +117,6 @@ def task_lm():
                 "prefill_caches": _np_tree(caches),
                 "chunk_caches": chunk_caches, "decode_logits": steps,
                 "decode_caches": _np_tree(c2)}
-    return out
 
 
 # rid -> (prompt_len, budget, submit_tick): a multi-wave long prompt,
@@ -297,14 +309,17 @@ def task_checkpoint():
     os.environ["REPRO_FUSED_BACKEND"] = "xla"
     base = reduced(ARCH)
     params = registry.build(base).init(jax.random.PRNGKey(0))
-    groups = {g.name: g.pattern for g in registry.projection_groups(base)}
-    register_policy(PrecisionPolicy("fp_grouped", rules=tuple(
-        (pat, PrecisionSpec(mode, group_size=gs))
-        for pat, mode, gs in fp_grouped_rules(groups))))
     out = {"cases": {}}
-    for policy, kw in (("int4_serving", dict(act_calibration="auto",
-                                             cost_correction="online")),
-                       ("fp_grouped", dict(act_calibration="auto"))):
+    cases = (("int4_serving", dict(act_calibration="auto",
+                                   cost_correction="online")),)
+    if ARCH == "qwen2-0.5b":         # fp_grouped names dense groups
+        groups = {g.name: g.pattern
+                  for g in registry.projection_groups(base)}
+        register_policy(PrecisionPolicy("fp_grouped", rules=tuple(
+            (pat, PrecisionSpec(mode, group_size=gs))
+            for pat, mode, gs in fp_grouped_rules(groups))))
+        cases += (("fp_grouped", dict(act_calibration="auto")),)
+    for policy, kw in cases:
         cfg = dataclasses.replace(base, precision_policy=policy)
         api = registry.build(cfg)
         config = EngineConfig(batch_slots=2, cache_len=64, prefill_chunk=4,
@@ -320,6 +335,24 @@ def task_checkpoint():
             "leaves": [np.asarray(x) for x in leaves],
             "scales": eng.act_scales}
     return out
+
+
+def task_rebuild():
+    """The reference's ``build_engine`` over the engine checkpoint in
+    ``$REPRO_PARITY_CHECKPOINT`` (written by the port): the weight
+    quantizations it made, its leaves and its streams over the trace."""
+    import jax
+
+    from repro.fabric.checkpoint import build_engine
+    from repro.layers.mplinear import count_weight_quant
+
+    os.environ["REPRO_FUSED_BACKEND"] = "xla"
+    with count_weight_quant() as wq:
+        eng = build_engine(os.environ["REPRO_PARITY_CHECKPOINT"])
+    leaves = [np.asarray(x) for x in jax.tree_util.tree_leaves(eng.params)]
+    _, streams = drive_trace(lambda: eng, _greedy_request, {})
+    return {"weight_quant": wq[0], "leaves": leaves, "streams": streams,
+            "fused": eng.fused, "scales": eng.act_scales}
 
 
 ROUTER_POLICIES = (f"plan:{PLAN}", "bf16", "int4_serving")
@@ -381,12 +414,71 @@ def task_router():
     return out
 
 
+# the lm family's other configurations (``tests/test_torch_archs.py``)
+ARCHS = ("gemma2-9b", "glm4-9b", "stablelm-12b", "mixtral-8x7b",
+         "qwen3-moe-30b-a3b")
+ARCH_POLICIES = ("bf16", "int8_serving", "int4_serving")
+# the archs whose engine streams are compared, and the decode blocks
+SERVED_ARCHS = ("mixtral-8x7b", "qwen3-moe-30b-a3b", "gemma2-9b")
+SERVED_BLOCKS = (1, 4)
+
+
+def task_arch():
+    """For ``ARCH``: ``task_lm``'s cases under ``ARCH_POLICIES``, and for
+    a served arch the trace through the reference engine under
+    ``int4_serving`` (the calibrated scales, fused) per decode block."""
+    import jax
+
+    from repro.configs import reduced
+    from repro.models import registry
+    from repro.serving import EngineConfig
+    from repro.serving.engine import ServingEngine
+
+    os.environ["REPRO_FUSED_BACKEND"] = "xla"
+    base = reduced(ARCH)
+    params = registry.build(base).init(jax.random.PRNGKey(0))
+    out = {"params": _np_tree(params), "cases": {}, "eager_scales": {},
+           "serving": {}}
+    _lm_cases(base, params, ARCH_POLICIES, out)
+    # the calibration op by op too: under jit XLA may rewrite a norm's
+    # f32 arithmetic (stablelm's LayerNorm), and a last-ulp change can
+    # flip the bf16 rounding of a projection's largest input
+    from repro.quant.calibrate import calibrate_act_scales
+    for pol in ARCH_POLICIES:
+        if pol in CALIBRATED:
+            cfg = dataclasses.replace(base, precision_policy=pol)
+            with jax.disable_jit():
+                out["eager_scales"][pol] = calibrate_act_scales(
+                    cfg, registry.build(cfg), params,
+                    prompts=calib_prompts())
+    if ARCH in SERVED_ARCHS:
+        cfg = dataclasses.replace(base, precision_policy="int4_serving")
+        api = registry.build(cfg)
+        scales = out["cases"][("int4_serving", None)]["scales"]
+        for blk in SERVED_BLOCKS:
+            config = EngineConfig(batch_slots=2, cache_len=64,
+                                  prefill_chunk=4, decode_block=blk,
+                                  act_calibration=scales)
+            eng, streams = drive_trace(
+                lambda: ServingEngine(cfg, api, params, config=config),
+                _greedy_request, STOPS)
+            out["serving"][blk] = {
+                "streams": streams, "counters": dict(eng.counters),
+                "fused": eng.fused,
+                "weight_quant": eng.weight_quant_trace_count(),
+                "act_quant": eng.act_quant_trace_count()}
+    return out
+
+
 TASKS = {"lm": task_lm, "serving": task_serving, "plan": task_plan,
-         "checkpoint": task_checkpoint, "router": task_router}
+         "checkpoint": task_checkpoint, "router": task_router,
+         "arch": task_arch, "rebuild": task_rebuild}
 
 
 if __name__ == "__main__":
     task, path = sys.argv[1], sys.argv[2]
+    if len(sys.argv) > 3:
+        ARCH = sys.argv[3]
     result = TASKS[task]()
     with open(path, "wb") as f:
         pickle.dump(result, f)

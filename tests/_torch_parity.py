@@ -76,27 +76,130 @@ def one_intra_op_thread():
 _REFERENCE = {}
 
 
-def reference(task: str):
-    """Outputs of ``tests/_jax_reference.py <task>``, computed once per
-    process in a subprocess with XLA's excess precision off (see that
-    file for why)."""
-    if task not in _REFERENCE:
-        here = os.path.dirname(os.path.abspath(__file__))
-        src = os.path.join(os.path.dirname(here), "src")
-        env = dict(os.environ)
-        env["XLA_FLAGS"] = (env.get("XLA_FLAGS", "")
-                            + " --xla_allow_excess_precision=false").strip()
-        env["JAX_PLATFORMS"] = "cpu"
-        env["PYTHONPATH"] = os.pathsep.join(
-            p for p in (src, env.get("PYTHONPATH")) if p)
-        with tempfile.TemporaryDirectory() as d:
-            out = os.path.join(d, f"{task}.pkl")
-            subprocess.run([sys.executable,
-                            os.path.join(here, "_jax_reference.py"), task,
-                            out], env=env, check=True, timeout=600)
-            with open(out, "rb") as f:
-                _REFERENCE[task] = pickle.load(f)
-    return _REFERENCE[task]
+def _reference_env():
+    here = os.path.dirname(os.path.abspath(__file__))
+    src = os.path.join(os.path.dirname(here), "src")
+    env = dict(os.environ)
+    env["XLA_FLAGS"] = (env.get("XLA_FLAGS", "")
+                        + " --xla_allow_excess_precision=false").strip()
+    env["JAX_PLATFORMS"] = "cpu"
+    env["PYTHONPATH"] = os.pathsep.join(
+        p for p in (src, env.get("PYTHONPATH")) if p)
+    return here, env
+
+
+def reference(task: str, arch=None):
+    """Outputs of ``tests/_jax_reference.py <task> [<arch>]``, computed
+    once per process in a subprocess with XLA's excess precision off
+    (see that file for why)."""
+    return references(task, [arch])[arch]
+
+
+def references(task: str, archs):
+    """``reference(task, arch)`` for every arch of ``archs``; the missing
+    ones run side by side, one subprocess each."""
+    todo = [a for a in archs if (task, a) not in _REFERENCE]
+    for arch, out in run_references(task, todo).items():
+        _REFERENCE[(task, arch)] = out
+    return {a: _REFERENCE[(task, a)] for a in archs}
+
+
+def run_references(task: str, archs, env_extra=None, timeout: float = 600):
+    """{arch: outputs of ``_jax_reference.py <task> [<arch>]``}, one
+    subprocess per arch, all started before any is waited for;
+    ``env_extra`` adds to their environment. Nothing is cached."""
+    here, env = _reference_env()
+    env.update(env_extra or {})
+    results = {}
+    with tempfile.TemporaryDirectory() as d:
+        procs = {}
+        for i, arch in enumerate(archs):
+            out = os.path.join(d, f"{task}-{i}.pkl")
+            procs[arch] = (out, subprocess.Popen(
+                [sys.executable, os.path.join(here, "_jax_reference.py"),
+                 task, out] + ([arch] if arch else []), env=env))
+        try:
+            for arch, (out, proc) in procs.items():
+                if proc.wait(timeout=timeout):
+                    raise subprocess.CalledProcessError(proc.returncode,
+                                                        proc.args)
+                with open(out, "rb") as f:
+                    results[arch] = pickle.load(f)
+        finally:
+            for _, proc in procs.values():
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+    return results
+
+
+BF16_RTOL = 2.0 ** -7
+
+
+def assert_caches(got, want, what, rtol=BF16_RTOL):
+    """Port caches against the reference's: position tags equal, K and V
+    (bf16) within ``rtol`` (one bf16 ulp by default)."""
+    for name, c in want.items():
+        k, v, pos = to_numpy(got[name])
+        np.testing.assert_array_equal(pos, np.asarray(c[2]),
+                                      err_msg=f"{what} {name} pos")
+        for a, b, field in ((k, c[0], "k"), (v, c[1], "v")):
+            np.testing.assert_allclose(a, np.asarray(b, np.float32),
+                                       rtol=rtol, atol=0,
+                                       err_msg=f"{what} {name} {field}")
+
+
+def run_lm(api, prepared, variant):
+    """The port's side of ``_jax_reference._lm_cases``: prefill logits
+    and caches, and a chunked prefill into fresh caches (returned
+    live)."""
+    from repro_torch.layers.mplinear import executor_variant
+
+    from _jax_reference import lm_inputs
+    inp = lm_inputs()
+    out = {}
+    with executor_variant(variant), torch.no_grad():
+        logits, caches = api.prefill(
+            prepared, {"tokens": torch.from_numpy(inp["prefill_tokens"])},
+            api.init_cache(2, 16, "cpu"))
+        out["prefill_logits"], out["prefill_caches"] = logits, caches
+        c2 = api.prefill_chunk(
+            prepared, {"tokens": torch.from_numpy(inp["chunk_tokens"]),
+                       "offsets": torch.from_numpy(inp["chunk_offsets"]),
+                       "lengths": torch.from_numpy(inp["chunk_lengths"])},
+            api.init_cache(3, 8, "cpu"))
+        out["chunk_caches"] = {k: to_numpy(c) for k, c in c2.items()}
+    return out, c2
+
+
+def check_lm_case(api, prepared, variant, case, logit_atol,
+                  cache_rtol=BF16_RTOL):
+    """One ``_lm_cases`` case: prefill logits and caches, chunk caches,
+    then three decode steps fed the reference's own argmax tokens."""
+    from repro_torch.layers.mplinear import executor_variant
+
+    from _jax_reference import lm_inputs
+    got, c2 = run_lm(api, prepared, variant)
+    np.testing.assert_allclose(got["prefill_logits"].numpy(),
+                               case["prefill_logits"], rtol=0,
+                               atol=logit_atol)
+    assert_caches(got["prefill_caches"], case["prefill_caches"], "prefill",
+                  cache_rtol)
+    assert_caches(got["chunk_caches"], case["chunk_caches"], "chunk",
+                  cache_rtol)
+    inp = lm_inputs()
+    tok = torch.from_numpy(inp["chunk_tokens"][:, :1].copy())
+    pos = torch.from_numpy(inp["chunk_offsets"] + inp["chunk_lengths"])
+    with executor_variant(variant), torch.no_grad():
+        for want in case["decode_logits"]:
+            logits, c2 = api.decode_step(prepared,
+                                         {"token": tok, "pos": pos}, c2)
+            np.testing.assert_allclose(logits.numpy(), want, rtol=0,
+                                       atol=logit_atol)
+            tok = torch.from_numpy(
+                np.argmax(want, -1).astype(np.int32)[:, None])
+            pos = pos + 1
+    assert_caches(c2, case["decode_caches"], "decode", cache_rtol)
 
 
 def load_fp_convert():

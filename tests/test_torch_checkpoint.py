@@ -58,7 +58,7 @@ from repro_torch.serving.engine import ServingEngine
 
 from _jax_reference import drive_trace, fp_grouped_rules
 from _torch_parity import one_intra_op_thread  # noqa: F401 (autouse)
-from _torch_parity import reference, to_torch
+from _torch_parity import reference, run_references, to_torch
 
 ARCH = "qwen2-0.5b"
 
@@ -424,11 +424,11 @@ def test_rebuild_does_no_rework_where_a_fresh_engine_does(tmp_path,
     assert a == b
 
 
-def _ref_params():
+def _ref_params(arch=ARCH):
     """The reference's seeded ``reduced`` init, converted to the port."""
     from repro.configs import reduced as ref_reduced
     from repro.models import registry as ref_registry
-    return to_torch(ref_registry.build(ref_reduced(ARCH)).init(
+    return to_torch(ref_registry.build(ref_reduced(arch)).init(
         jax.random.PRNGKey(0)))
 
 
@@ -443,6 +443,75 @@ def test_engine_checkpoint_corruption_names_the_leaf(tmp_path):
     with pytest.raises(ChecksumError,
                        match=r"\['blocks'\]\['b0'\]\['attn'\]\['wq'\]\.data"):
         restore_checkpoint(str(tmp_path), 0, device="cpu")
+
+
+# ------------------------------------------- an MoE engine, both ways
+
+MOE_ARCH = "mixtral-8x7b"
+
+
+def _expert_stacks(params):
+    moe = params["blocks"]["b0"]["moe"]
+    return [moe[n]["w"] for n in ("w_gate", "w_up", "w_down")]
+
+
+def test_reference_moe_engine_checkpoint_rebuilds_in_the_port(
+        tmp_path, monkeypatch):
+    """A reduced mixtral ``int4_serving`` engine saved by the reference:
+    its 4-D packed expert stacks come through the manifest bit for bit,
+    nothing is quantized or calibrated again, and the rebuilt engine
+    serves the reference engine's streams."""
+    want = reference("checkpoint", MOE_ARCH)["cases"]["int4_serving"]
+    ckpt = str(tmp_path / "ckpt")
+    _write(want["files"], ckpt)
+
+    def refuse(*a, **k):
+        raise AssertionError("the rebuild ran a calibration pass")
+    monkeypatch.setattr(calibrate, "calibrate_act_scales", refuse)
+    with count_weight_quant() as wq:
+        eng = build_engine(ckpt, device="cpu")
+    assert wq[0] == 0 and eng.cfg.moe is not None
+    assert eng.fused == want["fused"] and eng.act_scales == want["scales"]
+    leaves = tree_leaves_flat(eng.params)
+    assert len(leaves) == len(want["leaves"])
+    for a, b in zip(leaves, want["leaves"]):
+        assert _bits(a) == _bits(b)
+    cfg = eng.cfg
+    for w in _expert_stacks(eng.params):
+        assert isinstance(w, PreparedWeight) and w.kind == "int4_packed"
+        assert w.data.dim() == 4 and w.data.shape[:2] == (
+            cfg.n_layers, cfg.moe.n_experts)
+    _, streams = drive_trace(lambda: eng, _greedy, {})
+    assert streams == want["streams"]
+    assert eng.weight_quant_trace_count() == 0
+    again = save_engine_checkpoint(eng, str(tmp_path / "again"), step=3)
+    assert _manifest(again) == want["files"]["manifest.msgpack"]
+
+
+def test_port_moe_engine_checkpoint_rebuilds_in_the_reference(tmp_path):
+    """The other way: a port-saved reduced mixtral ``int4_serving``
+    engine, rebuilt by the reference's ``build_engine`` (in a
+    subprocess), has the port's leaves bit for bit, quantizes nothing
+    and serves the port engine's streams."""
+    cfg = dataclasses.replace(reduced(MOE_ARCH),
+                              precision_policy="int4_serving")
+    eng = ServingEngine(cfg, registry.build(cfg), _ref_params(MOE_ARCH),
+                        config=EngineConfig(batch_slots=2, cache_len=64,
+                                            prefill_chunk=4, decode_block=2,
+                                            act_calibration="auto"),
+                        device="cpu")
+    save_engine_checkpoint(eng, str(tmp_path), step=1)
+    mine = tree_leaves_flat(eng.params)
+    _, streams = drive_trace(lambda: eng, _greedy, {})
+    got = run_references("rebuild", [None], env_extra={
+        "REPRO_PARITY_CHECKPOINT": str(tmp_path)})[None]
+    assert got["weight_quant"] == 0
+    assert got["fused"] == eng.fused is True
+    assert got["scales"] == eng.act_scales
+    assert len(got["leaves"]) == len(mine)
+    for a, b in zip(got["leaves"], mine):
+        assert _bits(a) == _bits(b)
+    assert got["streams"] == streams
 
 
 # ------------------------------------------------------------ config schema

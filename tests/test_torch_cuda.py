@@ -1094,3 +1094,106 @@ def test_router_over_two_graphed_engines(cuda):
                 rep.engine.submit(r)
                 rep.engine.run_until_drained()
                 assert r.tokens == reqs[r.rid].tokens, (rep.name, r.rid)
+
+
+# ---------------------------------------------- the MoE layer, gemma2 shapes
+
+def _moe_card_vs_cpu(mcfg, params, x, policy="int4_serving", prepare=True):
+    """The MoE block on the card and on the CPU (a copy of the same
+    parameters): identical routing; returns (card y, CPU y) in f64."""
+    from repro_torch.convert import tree_to
+    from repro_torch.core.policy import get_policy
+    from repro_torch.layers import moe
+    from repro_torch.quant.prepare import prepare_weight
+    pol = get_policy(policy)
+    if prepare:
+        spec = pol.spec_for("block/moe/experts")
+        params = {k: ({"w": prepare_weight(v["w"], spec)}
+                      if k != "router" else v) for k, v in params.items()}
+    out = []
+    for tree, xx in ((params, x.cuda()), (tree_to(params, "cpu"), x.cpu())):
+        with torch.no_grad():
+            route = moe.route(tree, mcfg, xx)
+            y, _ = moe.forward(tree, mcfg, xx, pol, "block/moe")
+        out.append(([t.cpu() for t in route[1:5]], y.cpu().double()))
+    (rc, yc), (rp, yp) = out
+    for name, a, b in zip(("ids", "gates", "pos", "fits"), rc, rp):
+        if name == "gates":
+            torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
+        else:
+            assert torch.equal(a, b), name
+    return yc, yp
+
+
+def _rel_rms(a, b):
+    return float(torch.sqrt(((a - b) ** 2).mean() / (b ** 2).mean()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dispatch", ["einsum", "gather"])
+def test_moe_block_on_the_card_matches_the_cpu_reduced(cuda, dispatch):
+    """Reduced qwen3-moe's MoE block (raw bf16 experts and prepared
+    int4), a chunk and a decode step: the same routing on the card and
+    the CPU, outputs within 1% relative RMS (bf16 products summed in
+    another order; phase 5's first-layer tolerance). f32 matmuls must
+    not run on TF32 (a TF32 router moves expert selection)."""
+    from repro_torch.layers import moe
+    from repro_torch.models.lm import moe_cfg
+    assert not torch.backends.cuda.matmul.allow_tf32
+    assert torch.get_float32_matmul_precision() == "highest"
+    mcfg = dataclasses.replace(moe_cfg(reduced("qwen3-moe-30b-a3b")),
+                               dispatch=dispatch)
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(5)
+    params = moe.init(gen, mcfg, cuda)
+    rng = np.random.default_rng(6)
+    for shape in ((2, 32, mcfg.d_model), (8, 1, mcfg.d_model)):
+        x = torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)
+                             ).to(torch.bfloat16)
+        for policy, prepare in (("bf16", False), ("int4_serving", True)):
+            yc, yp = _moe_card_vs_cpu(mcfg, params, x, policy, prepare)
+            assert _rel_rms(yc, yp) <= 1e-2, (shape, policy)
+
+
+@pytest.mark.cuda
+def test_moe_block_on_the_card_matches_the_cpu_full_width(cuda):
+    """qwen3-moe-30b-a3b's MoE block at full width (128 experts, top-8,
+    d_expert 768), prepared int4, one 32-token chunk whose last 24
+    positions hold one hidden state (as a chunk's padded tail does):
+    they all pick the same 8 experts, so assignments drop at capacity
+    8, and routing is identical on the card and the CPU."""
+    from repro_torch.configs import get_config
+    from repro_torch.layers import moe
+    from repro_torch.models.lm import moe_cfg
+    mcfg = moe_cfg(get_config("qwen3-moe-30b-a3b"))
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(7)
+    params = moe.init(gen, mcfg, cuda)
+    x = torch.from_numpy(np.random.default_rng(8).standard_normal(
+        (1, 32, mcfg.d_model), dtype=np.float32)).to(torch.bfloat16)
+    x[:, 8:] = x[:, 8:9]
+    _, _, _, _, fits, cap = moe.route(params, mcfg, x.cuda())
+    assert cap == 8 and not bool(fits.all())
+    yc, yp = _moe_card_vs_cpu(mcfg, params, x)
+    assert _rel_rms(yc, yp) <= 1e-2
+
+
+GEMMA2_SHAPES = [(3584, 4096), (3584, 2048), (4096, 3584), (3584, 14336),
+                 (14336, 3584)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,n", GEMMA2_SHAPES, ids=str)
+@pytest.mark.parametrize("kind", ["int4_packed", "int8"])
+def test_fused_dequant_at_gemma2_shapes(cuda, kind, k, n):
+    """``fused_dequant_mm`` at gemma2-9b's projection shapes (K and N up
+    to 14336), M in {8, 256}, each act step: within 2 gamma_K of its
+    plain version."""
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(9)
+    w, sw = _stored(gen, k, n, kind, 1, cuda)
+    for m in (8, 256):
+        x = torch.randn((m, k), generator=gen, device=cuda) * 2
+        sa = (x.abs().amax() / 127).reshape(())
+        for act in tfused.ACTS:
+            _fd_check(x, w, sw, sa, kind, act)

@@ -31,50 +31,20 @@ import torch
 from repro_torch.configs import reduced
 from repro_torch.convert import params_from_numpy, to_numpy
 from repro_torch.core.policy import get_policy
-from repro_torch.layers.mplinear import executor_variant
 from repro_torch.models import registry
 from repro_torch.quant.calibrate import calibrate_act_scales
 
-from _jax_reference import CALIBRATED, LM_POLICIES, calib_prompts, lm_inputs
+from _jax_reference import CALIBRATED, LM_POLICIES, calib_prompts
 from _torch_parity import one_intra_op_thread  # noqa: F401 (autouse)
-from _torch_parity import reference
+from _torch_parity import check_lm_case, reference, run_lm
 
 LOGIT_ATOL = 1e-5
-BF16_RTOL = 2.0 ** -7
 
 
 @pytest.fixture(scope="module")
 def ref():
     out = reference("lm")
     return out, params_from_numpy(out["params"], device="cpu")
-
-
-def _assert_caches(got, want, what):
-    for name, c in want.items():
-        k, v, pos = to_numpy(got[name])
-        np.testing.assert_array_equal(pos, np.asarray(c[2]),
-                                      err_msg=f"{what} {name} pos")
-        for a, b, field in ((k, c[0], "k"), (v, c[1], "v")):
-            np.testing.assert_allclose(a, np.asarray(b, np.float32),
-                                       rtol=BF16_RTOL, atol=0,
-                                       err_msg=f"{what} {name} {field}")
-
-
-def _run(api, prepared, variant):
-    inp = lm_inputs()
-    out = {}
-    with executor_variant(variant), torch.no_grad():
-        logits, caches = api.prefill(
-            prepared, {"tokens": torch.from_numpy(inp["prefill_tokens"])},
-            api.init_cache(2, 16, "cpu"))
-        out["prefill_logits"], out["prefill_caches"] = logits, caches
-        c2 = api.prefill_chunk(
-            prepared, {"tokens": torch.from_numpy(inp["chunk_tokens"]),
-                       "offsets": torch.from_numpy(inp["chunk_offsets"]),
-                       "lengths": torch.from_numpy(inp["chunk_lengths"])},
-            api.init_cache(3, 8, "cpu"))
-        out["chunk_caches"] = {k: to_numpy(c) for k, c in c2.items()}
-    return out, c2
 
 
 @pytest.mark.parametrize("variant", [None, "fused"])
@@ -86,26 +56,7 @@ def test_lm_matches_reference(ref, policy, variant):
     api = registry.build(cfg)
     prepared = api.prepare(params, get_policy(policy),
                            act_scales=case["scales"])
-    got, c2 = _run(api, prepared, variant)
-    np.testing.assert_allclose(got["prefill_logits"].numpy(),
-                               case["prefill_logits"], rtol=0,
-                               atol=LOGIT_ATOL)
-    _assert_caches(got["prefill_caches"], case["prefill_caches"], "prefill")
-    _assert_caches(got["chunk_caches"], case["chunk_caches"], "chunk")
-
-    inp = lm_inputs()
-    tok = torch.from_numpy(inp["chunk_tokens"][:, :1].copy())
-    pos = torch.from_numpy(inp["chunk_offsets"] + inp["chunk_lengths"])
-    with executor_variant(variant), torch.no_grad():
-        for want in case["decode_logits"]:
-            logits, c2 = api.decode_step(prepared,
-                                         {"token": tok, "pos": pos}, c2)
-            np.testing.assert_allclose(logits.numpy(), want, rtol=0,
-                                       atol=LOGIT_ATOL)
-            tok = torch.from_numpy(
-                np.argmax(want, -1).astype(np.int32)[:, None])
-            pos = pos + 1
-    _assert_caches(c2, case["decode_caches"], "decode")
+    check_lm_case(api, prepared, variant, case, LOGIT_ATOL)
 
 
 @pytest.mark.parametrize("policy", CALIBRATED)
@@ -130,8 +81,8 @@ def test_fused_and_unfused_exact_int_agree(ref):
     prepared = api.prepare(params, get_policy("fidelity_int8"),
                            act_scales=out["cases"][("fidelity_int8",
                                                     None)]["scales"])
-    a, _ = _run(api, prepared, None)
-    b, _ = _run(api, prepared, "fused")
+    a, _ = run_lm(api, prepared, None)
+    b, _ = run_lm(api, prepared, "fused")
     assert torch.equal(a["prefill_logits"], b["prefill_logits"])
 
 
