@@ -3,8 +3,8 @@
 
     python3 chip_smoke.py [--report PATH] [--profile]
 
-Drives the port (``src/repro_torch``) on the card, in nine phases, each
-printing one line that starts with ``phase``:
+Drives the port (``src/repro_torch``) on the card, in twelve phases,
+each printing one line that starts with ``phase``:
 
 1. device and build: the card's name and power limit (nvidia-smi), and
    the build of every CUDA source with nvcc, timed;
@@ -44,8 +44,9 @@ printing one line that starts with ``phase``:
    ``fused_qmm``, ``fused_dequant_mm`` and ``mp_matmul`` compared per
    projection shape; then every kernel at the projection shapes of
    gemma2-9b and qwen3-moe-30b-a3b (K and N up to 14336) at M in {8,
-   256} (``mp_matmul`` at gemma2's wk, M = 8), with each shape's launch
-   plans printed;
+   256} (``mp_matmul`` at gemma2's wk, M = 8), and at those of
+   rwkv6-1.6b, recurrentgemma-9b and internvl2-1b's projector, with each
+   shape's launch plans printed;
 3. full-width qwen2-0.5b (24 layers, d_model 896, vocab 151936, random
    weights from a seed) served by the port's ``ServingEngine`` under
    ``int4_serving`` with calibrated act scales and the fused executors:
@@ -107,9 +108,26 @@ printing one line that starts with ``phase``:
    ``int4_serving``, prepared the same way, 4 requests at decode_block
    1 and 4 graphed against eager, identical streams, exactly 7 x 42
    ``fused_dequant_mm`` launches per decode step, and a replayed decode
-   step's time.
+   step's time;
+10-12. internvl2-1b (vlm), rwkv6-1.6b (rwkv) and recurrentgemma-9b
+   (griffin) whole at full width, random weights from a seed, under
+   ``int4_serving``, calibrated and prepared the same way; 6, 6 and 4
+   requests (8-32-token prompts, 8 new tokens) admitted by teacher
+   forcing (``teacher_forced_tokens`` equal to the summed prompt length
+   less one a request, no prefill wave), served graphed (a first and a
+   warm wave, the warm one from a fresh state for rwkv and griffin)
+   against eager with identical streams and launches, at decode_block 1
+   and 4 for vlm and 1 for the others (4 asserted to raise); exactly
+   168, 192 and 240 ``fused_dequant_mm`` launches per decode step and no
+   other kernel; rwkv's layer 0, each block of griffin's first (rec,
+   rec, attn) group (with what each of its projections saw) and the
+   group chained, one decode step from a random state, and internvl2's
+   prefill behind 256 patches
+   (its projector through ``fused_dequant_mm`` at 512 rows), on the card
+   against the CPU; tok/s, TTFT, a replayed decode step's time and
+   ``memory_allocated`` raw, prepared and peak.
 
-Phases 8 and 9 assert that f32 matmuls do not run on TF32 (a TF32
+Phases 8-12 assert that f32 matmuls do not run on TF32 (a TF32
 router moves expert selection); each phase frees its model before the
 next.
 
@@ -121,7 +139,7 @@ the repository around it, it exits non-zero before printing either.
 adds a torch.profiler breakdown of one decode block, replayed from its
 graph and run eagerly, under ``int4_serving`` (phase 3),
 ``fidelity_int8`` fused (phase 4), ``fidelity_fp16_ipu`` (phase 6) and
-``int4_serving`` for qwen3-moe and gemma2 (phases 8 and 9).
+``int4_serving`` for the models of phases 8-12.
 """
 import argparse
 import dataclasses
@@ -1301,7 +1319,7 @@ def _time_mpmm(gen, rates, cfg):
     return out
 
 
-# the projection shapes of the two models phases 8 and 9 serve (K, N)
+# the projection shapes of the models phases 8-12 serve (K, N)
 NEW_SHAPES = (
     ("gemma2-9b", (("wq", 3584, 4096), ("wk", 3584, 2048),
                    ("wv", 3584, 2048), ("wo", 4096, 3584),
@@ -1309,13 +1327,21 @@ NEW_SHAPES = (
                    ("w_down", 14336, 3584))),
     ("qwen3-moe-30b-a3b", (("wq", 2048, 4096), ("wk", 2048, 512),
                            ("wv", 2048, 512), ("wo", 4096, 2048))),
+    ("rwkv6-1.6b", (("w_r", 2048, 2048), ("c_key", 2048, 7168),
+                    ("c_val", 7168, 2048))),
+    ("recurrentgemma-9b", (("w_in_rnn", 4096, 4096), ("wk", 4096, 256),
+                           ("w_gate", 4096, 12288),
+                           ("w_down", 12288, 4096))),
+    ("internvl2-1b", (("projector/fc1", 1024, 896),)),
 )
 
 
 def _check_new_shapes(gen, cfg, err):
     """Every kernel against its plain version at the projection shapes
     of gemma2-9b and qwen3-moe-30b-a3b (head_dim 256 and 128, K and N up
-    to 14336), M in {8, 256}: ``fused_dequant_mm`` over int4_packed and
+    to 14336), rwkv6-1.6b (2048 <-> 7168), recurrentgemma-9b (4096 <->
+    12288, MQA wk 4096 -> 256) and internvl2-1b's projector (1024 ->
+    896), M in {8, 256}: ``fused_dequant_mm`` over int4_packed and
     int8 under each act step within 2 gamma_K, ``fused_qmm`` (int8 and
     int4_packed), ``qmm`` and ``qmm_packed`` bit-equal; ``mp_matmul``
     bit-equal at gemma2's wk at M = 8. Returns (comparisons, each
@@ -1387,7 +1413,7 @@ def phase_kernels(rates):
     n_int_tc = _check_int_tc(gen)
     n_cmp += n_fd + n_qmm + n_int_tc + _check_mpmm(gen, fidelity)
     n_new, new_plans = _check_new_shapes(gen, fidelity, err)
-    print("phase 2 plans at the gemma2-9b and qwen3-moe-30b-a3b shapes: "
+    print("phase 2 plans at the shapes of the models phases 8-12 serve: "
           + json.dumps(new_plans), flush=True)
     qmm_plans = _time_qmm_plans(gen)
     fused_qmm_plans = {kind: _time_int_tc_plans(gen, "fused_qmm", kind)
@@ -1479,7 +1505,8 @@ def _serve(cfg, api, params, config, reqs, eng=None, eager=False):
                "tok_per_s": new / wall, "ttft_p50_s": ttft["p50"],
                "ttft_max_s": ttft["max"],
                **{k: eng.counters[k] - counters[k]
-                  for k in ("host_syncs", "decode_steps", "prefill_calls")},
+                  for k in ("host_syncs", "decode_steps", "prefill_calls",
+                            "teacher_forced_tokens")},
                "captures": stats["captures"] - stats0["captures"],
                "replays": stats["replays"] - stats0["replays"],
                "capture_s": capture_s, "warmup_s": warmup_s,
@@ -1494,17 +1521,33 @@ def _serve(cfg, api, params, config, reqs, eng=None, eager=False):
     return eng, {r.rid: list(r.tokens) for r in reqs}, numbers
 
 
+def _fresh_state(eng):
+    """Write a fresh decode state into ``eng``'s, in place (its graphs
+    stay bound). The engine, as the reference's, never resets a slot's
+    recurrent state between requests (rwkv, griffin), so a second wave
+    serves the first one's streams only from a fresh state."""
+    from repro_torch.serving import graphs
+    fresh = eng.api.init_cache(eng.b, eng.cache_len, eng.device)
+    for (_, dst), (_, src) in zip(graphs.leaves(eng.caches),
+                                  graphs.leaves(fresh)):
+        dst.copy_(src)
+
+
 def _graphs_vs_eager(cfg, api, params, config, make_reqs, results, key,
                      eager_probe=None):
     """One route three ways: a new engine's first wave (captures), the
     same requests again on it (replays only), and a new engine's eager
     wave (inside ``eager_probe``, a context manager, where given). Holds
     all three to the same streams and the same kernel launches, and the
-    second wave to no capture. Returns (the graphed engine, its
-    streams)."""
+    second wave to no capture. The warm wave serves KV caches as the
+    first wave left them (position tags must hide what a slot held
+    before, under replay too), and recurrent state (rwkv, griffin) from
+    a fresh state. Returns (the graphed engine, its streams)."""
     import contextlib
     eng, streams, results[key] = _serve(cfg, api, params, config,
                                         make_reqs())
+    if cfg.family in RECURRENT_FAMILIES:
+        _fresh_state(eng)
     _, warm, results[f"{key}_warm"] = _serve(cfg, api, params, config,
                                              make_reqs(), eng=eng)
     eager_config = dataclasses.replace(config,
@@ -2154,6 +2197,12 @@ def _free():
     torch.cuda.empty_cache()
 
 
+def _rel(a, b):
+    """Relative RMS of ``a - b`` against ``b`` (any devices)."""
+    a, b = a.double().cpu(), b.double().cpu()
+    return float(torch.sqrt(((a - b) ** 2).mean() / (b ** 2).mean()))
+
+
 def _no_tf32():
     """The f32 router and head must not run on TF32: a TF32 router
     moves expert selection."""
@@ -2182,10 +2231,13 @@ def _prepared_engine(cfg, api, config):
     """Random f32 weights from seed 0, one engine to calibrate and
     prepare them, and then only its prepared tree: the raw projection
     weights (the f32 expert stacks among them) are released. Returns
-    (prepared tree, act scales, memory numbers)."""
+    (prepared tree, act scales, memory numbers: ``memory_allocated``
+    before the init (what earlier phases still hold), with the raw
+    parameters, with only the prepared tree, and its peak)."""
     from repro_torch.models import registry
     from repro_torch.serving.engine import ServingEngine
     torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
     params = registry.init_params(cfg, seed=0)
     torch.cuda.synchronize()
     raw = torch.cuda.memory_allocated()
@@ -2196,25 +2248,26 @@ def _prepared_engine(cfg, api, config):
     del eng, params
     _free()
     return prepared, scales, {
-        "allocated_raw_params": raw,
+        "allocated_before_init": before, "allocated_raw_params": raw,
         "allocated_prepared_only": torch.cuda.memory_allocated(),
         "max_allocated_preparing": torch.cuda.max_memory_allocated()}
 
 
 def _serve_both_blocks(cfg, api, prepared, scales, make_reqs, step_want,
-                       results, eager_probe=None, profile=False):
-    """The prepared model served at decode_block 1 and 4, each a first
+                       results, eager_probe=None, profile=False,
+                       blocks=(1, 4)):
+    """The prepared model served at each of ``blocks``, each a first
     (capturing) wave, a warm wave and an eager wave; identical streams
     everywhere, the same kernel launches graphed and eager, and one
     decode step's launches equal to ``step_want`` (``profile``: and a
-    profile of one decode block, replayed and eager, into
-    ``results["profile"]``). Returns the launches of all six waves, the
-    steps checked and the profiled blocks."""
+    profile of one decode block of the last block length, replayed and
+    eager, into ``results["profile"]``). Returns the launches of every
+    wave."""
     from repro_torch.kernels import ops
     from repro_torch.serving import EngineConfig
     streams = {}
     ops.reset_launch_counts()
-    for blk in (1, 4):
+    for blk in blocks:
         config = EngineConfig(batch_slots=8, cache_len=256, prefill_chunk=32,
                               decode_block=blk, act_calibration=scales,
                               fused_executors="on")
@@ -2226,14 +2279,14 @@ def _serve_both_blocks(cfg, api, prepared, scales, make_reqs, step_want,
             raise AssertionError(f"{cfg.arch_id}: not the fused path")
         results[f"block{blk}"]["step_launches"] = _step_launches(
             eng, step_want)
-        if profile and blk == 4:
+        if profile and blk == blocks[-1]:
             results["profile"] = _profile(eng, cfg)
         del eng
         _free()
     launches = ops.launch_counts()
-    if streams[1] != streams[4]:
+    if any(streams[b] != streams[blocks[0]] for b in blocks):
         raise AssertionError(f"{cfg.arch_id}: greedy streams differ "
-                             f"between decode_block 1 and 4")
+                             f"between decode blocks {blocks}")
     if {k for k, v in launches.items() if v} != set(step_want):
         raise AssertionError(f"{cfg.arch_id} launched {launches}")
     return launches
@@ -2300,21 +2353,21 @@ def _moe_layer_card_vs_cpu(cfg, prepared):
             if not torch.equal(a, b):
                 raise AssertionError(f"MoE {what}: {name} differ between "
                                      f"the card and the CPU")
-        yc, yp = yc.double(), yp.double()
-        rel = float(torch.sqrt(((yc - yp) ** 2).mean() / (yp ** 2).mean()))
+        rel = _rel(yc, yp)
         if not bool(torch.isfinite(yc).all()) or rel > FIRST_LAYER_REL_RMS:
             raise AssertionError(f"MoE {what}: card vs CPU relative RMS "
                                  f"{rel} (tolerance {FIRST_LAYER_REL_RMS})")
         out[what] = {"shape": list(shape), "capacity": cap,
                      "dropped": int((~fp).sum()), "assignments": fp.numel(),
                      "y_rel_rms": rel,
-                     "y_max_abs_diff": float((yc - yp).abs().max()),
+                     "y_max_abs_diff": float((yc.double() - yp.double()
+                                              ).abs().max()),
                      "aux_card": float(ac), "aux_cpu": float(ap),
                      "card_s": tc, "cpu_s": tp}
     return out
 
 
-def _decode_step_ms(cfg, prepared, batch):
+def _decode_step_ms(cfg, api, prepared, batch):
     """One decode step of ``batch`` rows (fused executors) replayed from
     a CUDA graph; for an MoE model also, timed the same way, what the
     step spends dequantizing every expert stack of every layer to bf16
@@ -2324,13 +2377,13 @@ def _decode_step_ms(cfg, prepared, batch):
     from repro_torch.layers.mplinear import executor_variant
     from repro_torch.models import lm
     from repro_torch.models.lm import layer_tree
-    caches = lm.init_cache(cfg, batch, 256)
+    caches = api.init_cache(batch, 256)
     tok = torch.zeros((batch, 1), dtype=torch.int32, device="cuda")
     pos = torch.full((batch,), 40, dtype=torch.int32, device="cuda")
 
     def step():
         with executor_variant("fused"):
-            lm.decode_step(prepared, cfg, tok, pos, caches)
+            api.decode_step(prepared, {"token": tok, "pos": pos}, caches)
 
     with torch.no_grad():
         out = {"rows": batch, "decode_step_ms": graph_ms(step, reps=5)}
@@ -2385,7 +2438,7 @@ def phase_moe(smi, profile):
     memory["max_allocated_serving"] = torch.cuda.max_memory_allocated()
     memory["reserved_after"] = _reserved_after()
     layer0 = _moe_layer_card_vs_cpu(cfg, prepared)
-    step = _decode_step_ms(cfg, prepared, 8)
+    step = _decode_step_ms(cfg, api, prepared, 8)
     log(8, card=smi, arch=cfg.arch_id, layers=cfg.n_layers,
         reduced={"n_layers": f"{full.n_layers} -> {cfg.n_layers}: 48 "
                  f"layers of f32 parameters are about 122 GB"},
@@ -2423,9 +2476,284 @@ def phase_gemma2(smi, profile):
         {"fused_dequant_mm": 7 * cfg.n_layers}, results, profile=profile)
     memory["max_allocated_serving"] = torch.cuda.max_memory_allocated()
     memory["reserved_after"] = _reserved_after()
-    step = _decode_step_ms(cfg, prepared, 8)
+    step = _decode_step_ms(cfg, api, prepared, 8)
     log(9, card=smi, arch=cfg.arch_id, layers=cfg.n_layers,
         launches=launches, runs=results, memory=memory, decode_step=step,
+        phase_s=time.perf_counter() - t_phase)
+    del prepared
+    _free()
+    return launches
+
+
+# ------------------------------------------------------- phases 10-12
+
+# families whose decode state is recurrent, not position-tagged KV caches
+RECURRENT_FAMILIES = ("rwkv", "griffin")
+# griffin's first (rec, rec, attn) group chained, card vs CPU: three
+# blocks deep, so past the first block's amplification (see
+# FIRST_LAYER_REL_RMS), held to the whole-model gate
+GROUP_REL_RMS = CPU_LOGIT_REL_RMS
+
+# per family: the phase, requests served, their seed, the decode blocks
+FAMILIES = {
+    "internvl2-1b": (10, 6, 23, (1, 4)),
+    "rwkv6-1.6b": (11, 6, 24, (1,)),
+    "recurrentgemma-9b": (12, 4, 25, (1,)),
+}
+
+
+def _launches_per_step(cfg):
+    """``fused_dequant_mm`` launches of one decode step: one per
+    projection. vlm 7 a layer as qwen2 (its projector runs only in
+    prefill: 168 at full width); rwkv 8 a layer (w_r, w_k, w_v, w_g,
+    w_o, c_key, c_val, c_rec: 192); griffin 6 a rec block (w_in_rnn,
+    w_in_gate, w_out and the MLP's three) and 7 an attention block (26 x
+    6 + 12 x 7 = 240)."""
+    from repro_torch.models import griffin
+    if cfg.family == "rwkv":
+        return 8 * cfg.n_layers
+    if cfg.family == "griffin":
+        pat, n_groups, _ = griffin._pattern(cfg)
+        n_attn = n_groups * pat.count("attn")
+        return 6 * (cfg.n_layers - n_attn) + 7 * n_attn
+    return 7 * cfg.n_layers
+
+
+def _card_vs_cpu(fn, tree, state, tol=FIRST_LAYER_REL_RMS):
+    """``fn(tree, state, device) -> (out, state)`` on the card (fused
+    executors) and on the CPU (a copy: the plain versions), from the
+    same state: relative RMS of the output and of each floating state
+    leaf (updated in place on both sides), each within ``tol``."""
+    from repro_torch.convert import tree_to
+    from repro_torch.layers.mplinear import executor_variant
+    from repro_torch.serving import graphs
+    got = {}
+    for where in ("card", "cpu"):
+        t = tree if where == "card" else tree_to(tree, "cpu")
+        st = tree_to(graphs.clone_tree(state), "cuda" if where == "card"
+                     else "cpu")
+        t0 = time.perf_counter()
+        with torch.no_grad(), executor_variant("fused"):
+            out, st = fn(t, st, "cuda" if where == "card" else "cpu")
+        if where == "card":
+            torch.cuda.synchronize()
+        got[where] = (out, st, time.perf_counter() - t0)
+    (oc, sc, tc), (op, sp, tp) = got["card"], got["cpu"]
+    rel = {"out": _rel(oc, op)}
+    rel.update({"/".join(map(str, p)): _rel(a, b) for (p, a), (_, b) in
+                zip(graphs.leaves(sc), graphs.leaves(sp))
+                if a.dtype.is_floating_point})
+    bad = {k: v for k, v in rel.items() if not v <= tol}
+    if bad or not bool(torch.isfinite(oc).all()):
+        raise AssertionError(f"card vs CPU relative RMS {bad} (tolerance "
+                             f"{tol})")
+    return {"rel_rms": rel, "tolerance": tol, "card_s": tc, "cpu_s": tp}
+
+
+class _Taps:
+    """While open, keeps what a griffin block's projections see: the
+    input and output of each ``mp_linear`` call of the RG-LRU, attention
+    and MLP layers, the int8 act codes of each input under its weight's
+    calibrated scale (``quantize_symmetric``, the fused executor's
+    rounding), and the RG-LRU's conv output and gates ``a``, ``b``."""
+
+    def __enter__(self):
+        from repro_torch.layers import attention, mlp, rglru
+        from repro_torch.quant.quantize import quantize_symmetric
+        self.taps, self.mods = {}, (attention, mlp, rglru)
+        self.real, self.gates = [m.mp_linear for m in self.mods], \
+            rglru._gates
+
+        def tapped(real):
+            def run(params, x, spec, *a, **kw):
+                y = real(params, x, spec, *a, **kw)
+                path = kw["path"].split("/", 1)[1]
+                self.taps[f"{path} in"] = x.detach().clone()
+                sa = getattr(params["w"], "act_scale", None)
+                if sa is not None:
+                    self.taps[f"{path} codes"] = quantize_symmetric(
+                        x, 8, scale=sa)[0]
+                self.taps[f"{path} out"] = y.detach().clone()
+                return y
+            return run
+
+        def gates(params, xr):
+            a, b = self.gates(params, xr)
+            self.taps.update({"rec/conv out": xr.detach().clone(),
+                              "rec/gates a": a.detach().clone(),
+                              "rec/gates b": b.detach().clone()})
+            return a, b
+        for m, real in zip(self.mods, self.real):
+            m.mp_linear = tapped(real)
+        rglru._gates = gates
+        return self.taps
+
+    def __exit__(self, *exc):
+        for m, real in zip(self.mods, self.real):
+            m.mp_linear = real
+        self.mods[2]._gates = self.gates
+
+    @staticmethod
+    def compare(card, cpu):
+        """Each tap, in the order the block made them: relative RMS and
+        elements that differ; for act codes, the codes that differ, the
+        mean |code| and the most that one moved."""
+        out = {}
+        for k, a in card.items():
+            a, b = a.cpu(), cpu[k]
+            n = int((a != b).sum())
+            if k.endswith("codes"):
+                d = (a.int() - b.int()).abs()
+                out[k] = {"differ": n, "mean_abs": float(
+                    b.float().abs().mean()), "max_step": int(d.max())}
+            else:
+                out[k] = {"rel_rms": _rel(a, b), "differ": n,
+                          "of": b.numel()}
+        return out
+
+
+def _first_layers_card_vs_cpu(cfg, api, prepared):
+    """rwkv: layer 0; griffin: each block of the first (rec, rec, attn)
+    group from the same input, with what each of its projections saw
+    (``_Taps``), and the group chained; one decode step of 8 rows from a
+    random state, card against CPU. vlm:
+    one prefill of 2 rows of 16 tokens behind 256 patches (the projector
+    at 512 rows, every projection at 544), logits and caches card
+    against CPU within phase 5's whole-model relative RMS, and the rows
+    of every ``fused_dequant_mm`` call."""
+    from repro_torch.core.policy import get_policy
+    from repro_torch.kernels import ops
+    from repro_torch.models import griffin, rwkv
+    from repro_torch.models.lm import layer_tree
+    from repro_torch.serving import graphs
+    policy = get_policy(cfg.precision_policy)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(31)
+    rnd = lambda t: (torch.randn(t.shape, generator=gen,  # noqa: E731
+                                 device="cuda") * 0.5).to(t.dtype)
+    x = torch.randn((8, 1, cfg.d_model), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    if cfg.family == "rwkv":
+        state = graphs.tree_map(lambda p, t: rnd(t), api.init_cache(8, 0))
+        state = type(state)(*(t[0] for t in state))
+        return {"layer0": _card_vs_cpu(
+            lambda t, st, dev: (rwkv._block(t, cfg, x.to(dev), st, policy,
+                                            True), st),
+            layer_tree(prepared["blocks"], 0), state)}
+    if cfg.family == "griffin":
+        caches = api.init_cache(8, 256)["groups"]
+        pos = torch.full((8,), 40, dtype=torch.int32, device="cuda")
+        pat, _, _ = griffin._pattern(cfg)
+        trees, states, out = {}, {}, {}
+        for i, kind in enumerate(pat):
+            b, c = f"b{i}", caches[f"b{i}"]
+            trees[b] = layer_tree(prepared["blocks"][b], 0)
+            states[b] = type(c)(*(rnd(t[0]) if kind == "rec" else t[0]
+                                  for t in c))
+            taps = {}
+
+            def block(t, st, dev, kind=kind):
+                p = pos.to(dev)
+                with _Taps() as taps[dev]:
+                    y = griffin._apply_block(t, cfg, kind, x.to(dev),
+                                             p[:, None], policy, "decode",
+                                             st, p)
+                return y, st
+            out[b] = _card_vs_cpu(block, trees[b], states[b])
+            out[b]["stages"] = _Taps.compare(taps["cuda"], taps["cpu"])
+
+        def group(t, st, dev):
+            p, y = pos.to(dev), x.to(dev)
+            for i, kind in enumerate(pat):
+                y = griffin._apply_block(t[f"b{i}"], cfg, kind, y,
+                                         p[:, None], policy, "decode",
+                                         st[f"b{i}"], p)
+            return y, st
+        return {"group0": out, "group0_chained": _card_vs_cpu(
+            group, trees, states, GROUP_REL_RMS)}
+    # vlm: a prefill behind 256 patches, every fused_dequant_mm call's rows
+    rows, real = [], ops.fused_dequant_matmul
+
+    def counted(x2, *a, **kw):
+        if x2.is_cuda:
+            rows.append((int(x2.shape[0]), int(x2.shape[1])))
+        return real(x2, *a, **kw)
+
+    tokens = torch.randint(0, cfg.vocab, (2, 16), generator=gen,
+                           device="cuda", dtype=torch.int32)
+    patches = torch.randn((2, cfg.n_patches, cfg.vit_dim), generator=gen,
+                          device="cuda")
+    batch = {"tokens": tokens, "patches": patches}
+    ops.fused_dequant_matmul = counted
+    try:
+        out = _card_vs_cpu(
+            lambda t, st, dev: (api.prefill(
+                t, {k: v.to(dev) for k, v in batch.items()}, st)[0][
+                    :, :cfg.vocab], st),
+            prepared, api.init_cache(2, 16), CPU_LOGIT_REL_RMS)
+    finally:
+        ops.fused_dequant_matmul = real
+    projector = [r for r in rows if r[1] == cfg.vit_dim]
+    if len(rows) != 2 + 7 * cfg.n_layers or projector != [
+            (2 * cfg.n_patches, cfg.vit_dim)] or min(
+            r[0] for r in rows) < 2 * cfg.n_patches:
+        raise AssertionError(f"vlm prefill: fused_dequant_mm calls {rows}")
+    out["fused_dequant_calls"] = len(rows)
+    out["rows"] = sorted({r[0] for r in rows})
+    return {"prefill_with_patches": out}
+
+
+def phase_family(arch, smi, profile):
+    """``arch`` whole at full width under int4_serving (calibrated,
+    prepared, only the prepared tree kept), served by teacher-forced
+    admission through the engine's graphs."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import registry
+    from repro_torch.serving import EngineConfig
+    from repro_torch.serving.engine import ServingEngine
+    num, n_req, seed, blocks = FAMILIES[arch]
+    _no_tf32()
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(get_config(arch),
+                              precision_policy="int4_serving")
+    api = registry.build(cfg)
+    per_step = _launches_per_step(cfg)
+    prepared, scales, memory = _prepared_engine(
+        cfg, api, EngineConfig(batch_slots=8, cache_len=256,
+                               act_calibration="auto",
+                               fused_executors="on"))
+    refused = None
+    if 4 not in blocks:
+        try:
+            ServingEngine(cfg, api, prepared, config=EngineConfig(
+                batch_slots=8, cache_len=256, decode_block=4))
+        except ValueError as e:
+            refused = str(e)
+        if not refused or "not eligible" not in refused:
+            raise AssertionError(f"{arch}: decode_block=4 was not refused")
+    results = {}
+    torch.cuda.reset_peak_memory_stats()
+    make = lambda: _requests(cfg, n_req, 8, 32, 8, seed=seed)  # noqa: E731
+    forced = sum(len(r.prompt) - 1 for r in make())
+    launches = _serve_both_blocks(
+        cfg, api, prepared, scales, make, {"fused_dequant_mm": per_step},
+        results, profile=profile, blocks=blocks)
+    for wave, numbers in results.items():
+        if isinstance(numbers, dict) and "teacher_forced_tokens" in numbers \
+                and (numbers["teacher_forced_tokens"] != forced
+                     or numbers["prefill_calls"]):
+            raise AssertionError(f"{arch} {wave}: teacher-forced "
+                                 f"{numbers['teacher_forced_tokens']} "
+                                 f"tokens, want {forced}")
+    memory["max_allocated_serving"] = torch.cuda.max_memory_allocated()
+    memory["reserved_after"] = _reserved_after()
+    first = _first_layers_card_vs_cpu(cfg, api, prepared)
+    step = _decode_step_ms(cfg, api, prepared, 8)
+    log(num, card=smi, arch=arch, family=cfg.family, layers=cfg.n_layers,
+        launches=launches, fused_dequant_per_step=per_step,
+        teacher_forced_per_wave=forced,
+        decode_block_4_refused=refused, runs=results, memory=memory,
+        card_vs_cpu=first, decode_step=step,
         phase_s=time.perf_counter() - t_phase)
     del prepared
     _free()
@@ -2454,7 +2782,7 @@ def main():
                     "JSON file")
     ap.add_argument("--profile", action="store_true",
                     help="profile one decode block, replayed from its "
-                    "graph and run eagerly, in phases 3, 4, 6, 8 and 9")
+                    "graph and run eagerly, in phases 3, 4, 6 and 8-12")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke test needs one",
@@ -2490,11 +2818,14 @@ def main():
     _free()
     launches8 = phase_moe(smi, args.profile)
     launches9 = phase_gemma2(smi, args.profile)
+    launches_families = [phase_family(arch, smi, args.profile)
+                         for arch in FAMILIES]
 
     main_launches = {
         "fused_dequant_mm": launches3["fused_dequant_mm"]
         + launches7["fused_dequant_mm"] + launches8["fused_dequant_mm"]
-        + launches9["fused_dequant_mm"],
+        + launches9["fused_dequant_mm"]
+        + sum(n["fused_dequant_mm"] for n in launches_families),
         "fused_qmm": launches4["fidelity_int8"]["fused_qmm"]
         + launches4["int4_exact"]["fused_qmm"],
         "qmm": launches4["fidelity_int8"]["qmm"],

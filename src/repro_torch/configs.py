@@ -2,9 +2,10 @@
 
 ``ModelConfig``/``MoESpec``/``InputShape`` mirror ``repro/configs/base.py``
 field for field; ``get_config`` knows the architectures this port serves
-so far, the reference's ``lm`` family (``repro/configs/<arch>.py``:
-qwen2-0.5b, gemma2-9b, glm4-9b, stablelm-12b, mixtral-8x7b and
-qwen3-moe-30b-a3b), and ``reduced`` repeats
+(``repro/configs/<arch>.py``): the ``lm`` family (qwen2-0.5b,
+gemma2-9b, glm4-9b, stablelm-12b, mixtral-8x7b and qwen3-moe-30b-a3b),
+internvl2-1b (``vlm``), rwkv6-1.6b (``rwkv``) and recurrentgemma-9b
+(``griffin``); and ``reduced`` repeats
 ``repro/configs/__init__.py::reduced`` (the family-preserving tiny
 variant the CPU tests run).
 """
@@ -25,8 +26,9 @@ class MoESpec:
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
-    """One architecture. ``family`` selects the model implementation;
-    the port implements the 'lm' family (dense and MoE) so far."""
+    """One architecture. ``family`` selects the model implementation:
+    'lm' (dense and MoE), 'vlm', 'rwkv' or 'griffin' ('encdec' is not
+    ported)."""
 
     arch_id: str
     family: str
@@ -159,10 +161,51 @@ def qwen3_moe_30b_a3b() -> ModelConfig:
         tied_embeddings=False)
 
 
+def internvl2_1b() -> ModelConfig:
+    """InternVL2-1B [arXiv:2404.16821; hf:OpenGVLab/InternVL2-1B]:
+    Qwen2-0.5B language backbone (24L, d_model 896, 14 heads GQA kv=2,
+    d_ff 4864, vocab 151655) + InternViT stub frontend: precomputed patch
+    embeddings (256 tokens after pixel-shuffle, dim 1024) mapped through
+    a 2-layer MLP projector."""
+    return ModelConfig(
+        arch_id="internvl2-1b", family="vlm", n_layers=24, d_model=896,
+        n_heads=14, n_kv_heads=2, head_dim=64, d_ff=4864, vocab=151655,
+        qkv_bias=True, norm="rms", act="silu", rope_theta=1e6,
+        attn_pattern="full", tied_embeddings=True, n_patches=256,
+        vit_dim=1024)
+
+
+def rwkv6_1_6b() -> ModelConfig:
+    """RWKV-6 "Finch" 1.6B [arXiv:2404.05892]: 24L, d_model 2048,
+    attention-free (32 heads of size 64 in the wkv state), d_ff 7168,
+    vocab 65536. Data-dependent decay via LoRA; LayerNorm;
+    sub-quadratic."""
+    return ModelConfig(
+        arch_id="rwkv6-1.6b", family="rwkv", n_layers=24, d_model=2048,
+        n_heads=32, n_kv_heads=32, d_ff=7168, vocab=65536, norm="ln",
+        tied_embeddings=False)
+
+
+def recurrentgemma_9b() -> ModelConfig:
+    """RecurrentGemma-9B (Griffin) [arXiv:2402.19427]: 38L, d_model 4096,
+    RG-LRU recurrence + local attention 1:2 (rec, rec, attn triples; 2
+    trailing rec), 16 heads MQA (kv=1, head_dim 256), d_ff 12288, d_rnn
+    4096, window 2048, vocab 256000. Gemma-style zero-centered RMSNorm +
+    GeGLU. Sub-quadratic."""
+    return ModelConfig(
+        arch_id="recurrentgemma-9b", family="griffin", n_layers=38,
+        d_model=4096, n_heads=16, n_kv_heads=1, head_dim=256, d_ff=12288,
+        vocab=256000, norm="rms_zc", act="gelu_tanh", attn_pattern="swa",
+        window=2048, d_rnn=4096, conv_width=4,
+        rec_pattern=("rec", "rec", "attn"), tied_embeddings=True)
+
+
 _CONFIGS = {"qwen2-0.5b": qwen2_0_5b, "gemma2-9b": gemma2_9b,
             "glm4-9b": glm4_9b, "stablelm-12b": stablelm_12b,
             "mixtral-8x7b": mixtral_8x7b,
-            "qwen3-moe-30b-a3b": qwen3_moe_30b_a3b}
+            "qwen3-moe-30b-a3b": qwen3_moe_30b_a3b,
+            "internvl2-1b": internvl2_1b, "rwkv6-1.6b": rwkv6_1_6b,
+            "recurrentgemma-9b": recurrentgemma_9b}
 ARCH_IDS = tuple(_CONFIGS)
 
 

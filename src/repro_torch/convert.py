@@ -7,6 +7,8 @@ layouts, stacked layer axes included. bf16 arrays travel as their
 the conversion is exact. Prepared trees convert too: a prepared weight
 arrives as ``{data, scale, kind, act_scale}`` (a dict, or any object
 with those attributes) and becomes a ``quant.prepare.PreparedWeight``.
+A decode-state NamedTuple (the reference's ``KVCache``, ``RWKVState``
+or ``RGLRUState``) becomes the port's class with the same fields.
 
 ``to_numpy`` goes the other way for comparisons (bf16 widens to f32,
 which is exact).
@@ -20,9 +22,13 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.layers.attention import KVCache
+from repro_torch.layers.rglru import RGLRUState
+from repro_torch.layers.rwkv6 import RWKVState
 from repro_torch.quant.prepare import PreparedWeight
 
 _PREPARED_FIELDS = ("data", "scale", "kind", "act_scale")
+# the reference's decode-state NamedTuples, by their fields -> the port's
+_STATES = {t._fields: t for t in (KVCache, RWKVState, RGLRUState)}
 
 
 def tensor_from_numpy(a, device) -> torch.Tensor:
@@ -45,10 +51,13 @@ def _prepared_fields(node):
 
 def params_from_numpy(tree, device=None):
     """Convert a nested dict/list of numpy arrays (and prepared-weight
-    records) into torch tensors on ``device`` (CUDA by default)."""
+    records, and decode states: KV caches, RWKV and RG-LRU states) into
+torch tensors on ``device`` (CUDA by default)."""
     device = resolve_device(device)
 
     def conv(node):
+        if isinstance(node, np.ndarray):
+            return tensor_from_numpy(node, device)
         fields = _prepared_fields(node)
         if fields is not None:
             opt = {k: (None if fields.get(k) is None
@@ -59,6 +68,10 @@ def params_from_numpy(tree, device=None):
                                   opt["act_scale"])
         if isinstance(node, dict):
             return {k: conv(v) for k, v in node.items()}
+        fields = getattr(node, "_fields", None)
+        if fields is not None:
+            return _STATES.get(tuple(fields), type(node))(
+                *(conv(v) for v in node))
         if isinstance(node, (list, tuple)):
             return type(node)(conv(v) for v in node)
         if node is None:
@@ -69,12 +82,13 @@ def params_from_numpy(tree, device=None):
 
 
 def to_numpy(tree) -> Any:
-    """torch tree -> numpy tree (bf16 -> f32; PreparedWeight -> dict;
-    KVCache -> tuple (k, v, pos))."""
+    """torch tree -> numpy tree (bf16 -> f32; PreparedWeight -> dict; a
+    decode state (KVCache, RWKVState, RGLRUState) -> a tuple of its
+    fields)."""
     if isinstance(tree, PreparedWeight):
         return {f: to_numpy(getattr(tree, f)) if f != "kind" else tree.kind
                 for f in _PREPARED_FIELDS}
-    if isinstance(tree, KVCache):
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
         return tuple(to_numpy(t) for t in tree)
     if isinstance(tree, dict):
         return {k: to_numpy(v) for k, v in tree.items()}
@@ -91,7 +105,7 @@ def to_numpy(tree) -> Any:
 
 
 def tree_to(tree, device):
-    """Move every tensor of a tree (PreparedWeight and KVCache included)
+    """Move every tensor of a tree (PreparedWeight and states included)
     to ``device``; tensors already there pass through uncopied."""
     if isinstance(tree, PreparedWeight):
         return PreparedWeight(
@@ -99,8 +113,8 @@ def tree_to(tree, device):
             None if tree.scale is None else tree.scale.to(device),
             tree.kind,
             None if tree.act_scale is None else tree.act_scale.to(device))
-    if isinstance(tree, KVCache):
-        return KVCache(*(t.to(device) for t in tree))
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(tree_to(t, device) for t in tree))
     if isinstance(tree, dict):
         return {k: tree_to(v, device) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):

@@ -16,9 +16,9 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from repro_torch.layers.common import (apply_rope, dense_init, norm_init,
+from repro_torch.layers.common import (apply_rope, norm_init,
                                        rms_norm, softcap)
-from repro_torch.layers.mplinear import mp_linear
+from repro_torch.layers.mplinear import linear_init, mp_linear
 
 
 @dataclasses.dataclass(frozen=True)
@@ -56,23 +56,16 @@ class KVCache(NamedTuple):
     pos: torch.Tensor  # (B, C) int32 absolute positions, -1 = empty
 
 
-def _linear(generator, d_in, d_out, bias, device, dtype, lead):
-    p = {"w": dense_init(generator, d_in, d_out, device, dtype, lead)}
-    if bias:
-        p["b"] = torch.zeros((*lead, d_out), dtype=dtype, device=device)
-    return p
-
-
 def init(generator: torch.Generator, cfg: AttnConfig, device,
          dtype=torch.float32, lead=()):
     p = {
-        "wq": _linear(generator, cfg.d_model, cfg.q_dim, cfg.qkv_bias,
+        "wq": linear_init(generator, cfg.d_model, cfg.q_dim, cfg.qkv_bias,
                       device, dtype, lead),
-        "wk": _linear(generator, cfg.d_model, cfg.kv_dim, cfg.qkv_bias,
+        "wk": linear_init(generator, cfg.d_model, cfg.kv_dim, cfg.qkv_bias,
                       device, dtype, lead),
-        "wv": _linear(generator, cfg.d_model, cfg.kv_dim, cfg.qkv_bias,
+        "wv": linear_init(generator, cfg.d_model, cfg.kv_dim, cfg.qkv_bias,
                       device, dtype, lead),
-        "wo": _linear(generator, cfg.q_dim, cfg.d_model, False, device,
+        "wo": linear_init(generator, cfg.q_dim, cfg.d_model, False, device,
                       dtype, lead),
     }
     if cfg.qk_norm:

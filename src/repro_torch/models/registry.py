@@ -1,26 +1,28 @@
-"""Uniform model API, the lm part (mirror of ``repro/models/registry.py``).
+"""Uniform model API across the served families (mirror of
+``repro/models/registry.py``): ``lm``, ``vlm``, ``rwkv`` and
+``griffin``; ``encdec`` is not ported.
 
 ``build(cfg)`` -> :class:`ModelAPI` with ``init(seed, device)``,
-``prefill``, ``decode_step``, ``prefill_chunk``, ``init_cache(batch,
-max_len, device)`` and the ``prepare`` hook; ``projection_paths`` maps
-parameter-tree containers to policy paths; ``projection_groups`` lists
-every family's precision-tuning units (the router's cost model reads
-them, for families whose layers are not ported too);
+``prefill``, ``decode_step``, ``prefill_chunk`` (``lm`` only; None
+elsewhere), ``init_cache(batch, max_len, device)`` and the ``prepare``
+hook; ``projection_paths`` maps parameter-tree containers to policy
+paths; ``projection_groups`` lists every family's precision-tuning units
+(the router's cost model reads them, ``encdec``'s too);
 ``make_block_decode`` builds the blocked decode program the engine
-dispatches once per block.
+dispatches once per block (``lm`` and ``vlm``).
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
 import re
-from typing import Any, Callable, NamedTuple, Optional, Tuple
+from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.configs import ModelConfig
-from repro_torch.models import lm
+from repro_torch.models import griffin, lm, rwkv, vlm
 
 
 @dataclasses.dataclass(frozen=True)
@@ -137,13 +139,70 @@ def _lm_projection_paths(cfg: ModelConfig) -> Callable[[str], Optional[str]]:
     return path_for
 
 
+def _vlm_projection_paths(cfg: ModelConfig
+                          ) -> Callable[[str], Optional[str]]:
+    base = _lm_projection_paths(cfg)
+
+    def path_for(p: str) -> Optional[str]:
+        m = re.fullmatch(r"projector/(fc[12])", p)
+        if m:
+            return f"projector/{m.group(1)}"
+        return base(p)
+
+    return path_for
+
+
+def _rwkv_projection_paths(cfg: ModelConfig
+                           ) -> Callable[[str], Optional[str]]:
+    def path_for(p: str) -> Optional[str]:
+        m = re.fullmatch(r"blocks/mix/(w_[rkvgo]|c_(?:key|val|rec))", p)
+        if m:
+            return f"block/mix/{m.group(1)}"
+        return None
+
+    return path_for
+
+
+def _griffin_projection_paths(cfg: ModelConfig
+                              ) -> Callable[[str], Optional[str]]:
+    def path_for(p: str) -> Optional[str]:
+        m = re.fullmatch(
+            r"(?:blocks/b\d+|tail/\d+)/rec/(w_in_rnn|w_in_gate|w_out)", p)
+        if m:
+            return f"block/rec/{m.group(1)}"
+        m = re.fullmatch(r"(?:blocks/b\d+|tail/\d+)/attn/(w[qkvo])", p)
+        if m:
+            return f"block/attn/{m.group(1)}"
+        m = re.fullmatch(
+            r"(?:blocks/b\d+|tail/\d+)/mlp/(w_(?:gate|up|down))", p)
+        if m:
+            return f"block/mlp/{m.group(1)}"
+        return None
+
+    return path_for
+
+
+_PROJECTION_PATHS = {
+    "lm": _lm_projection_paths,
+    "vlm": _vlm_projection_paths,
+    "rwkv": _rwkv_projection_paths,
+    "griffin": _griffin_projection_paths,
+}
+
+
+def _not_ported(cfg: ModelConfig) -> NotImplementedError:
+    return NotImplementedError(
+        f"family {cfg.family!r} is not ported (the port serves "
+        f"{tuple(_PROJECTION_PATHS)}); encdec waits for a later slice")
+
+
 def projection_paths(cfg: ModelConfig) -> Callable[[str], Optional[str]]:
     """Container path -> policy path for every projection the policy
-    routes; None for everything else (embeddings, norms)."""
-    if cfg.family != "lm":
-        raise NotImplementedError(
-            f"family {cfg.family!r} waits for a later slice of the port")
-    return _lm_projection_paths(cfg)
+    routes; None for everything else (embeddings, norms, the rwkv decay
+    LoRA and head, the RG-LRU gates)."""
+    if cfg.family not in _PROJECTION_PATHS:
+        raise _not_ported(cfg)
+    return _PROJECTION_PATHS[cfg.family](cfg)
 
 
 def _prepare_fn(cfg: ModelConfig) -> Callable:
@@ -155,6 +214,10 @@ def _prepare_fn(cfg: ModelConfig) -> Callable:
     return prepare
 
 
+# families eligible for blocked decode: the pad steps a spent slot keeps
+# taking inside a block must be invisible, which holds for
+# position-tagged KV caches but not for recurrent state (rwkv and griffin
+# fold every token in), as in the reference
 _BLOCK_DECODE_FAMILIES = ("lm", "vlm")
 
 
@@ -255,23 +318,40 @@ class ModelAPI(NamedTuple):
     prefill_chunk: Callable = None
 
 
+# the families ``build`` serves, each by its module's init / prefill /
+# decode_step / init_cache
+_FAMILY_MODULES = {"lm": lm, "vlm": vlm, "rwkv": rwkv, "griffin": griffin}
+
+
 def build(cfg: ModelConfig) -> ModelAPI:
-    if cfg.family != "lm":
-        raise NotImplementedError(
-            f"family {cfg.family!r} waits for a later slice of the port")
+    mod = _FAMILY_MODULES.get(cfg.family)
+    if mod is None:
+        raise _not_ported(cfg)
+    if cfg.family == "vlm":
+        def prefill(p, batch, caches):
+            return vlm.prefill(p, cfg, batch["tokens"], caches,
+                               batch["patches"])
+    else:
+        def prefill(p, batch, caches):
+            return mod.prefill(p, cfg, batch["tokens"], caches)
+    # vlm's caches also hold the patch embeddings it prefills
+    extra = (cfg.n_patches or 0) if cfg.family == "vlm" else 0
+    chunk = None
+    if cfg.family == "lm":
+        def chunk(p, batch, caches):
+            return lm.prefill_chunk(p, cfg, batch["tokens"], batch["offsets"],
+                                    batch["lengths"], caches)
     return ModelAPI(
         cfg,
-        lambda seed=0, device=None: lm.init(cfg, seed, device),
+        lambda seed=0, device=None: mod.init(cfg, seed, device),
         None,
-        lambda p, batch, caches: lm.prefill(p, cfg, batch["tokens"], caches),
-        lambda p, batch, caches: lm.decode_step(p, cfg, batch["token"],
-                                                batch["pos"], caches),
-        lambda bsz, max_len, device=None: lm.init_cache(cfg, bsz, max_len,
-                                                        device),
+        prefill,
+        lambda p, batch, caches: mod.decode_step(
+            p, cfg, batch["token"], batch["pos"], caches),
+        lambda bsz, max_len, device=None: mod.init_cache(
+            cfg, bsz, max_len + extra, device),
         _prepare_fn(cfg),
-        lambda p, batch, caches: lm.prefill_chunk(
-            p, cfg, batch["tokens"], batch["offsets"], batch["lengths"],
-            caches),
+        chunk,
     )
 
 
@@ -282,10 +362,16 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None):
 
 
 def calibration_batch(cfg: ModelConfig, batch: int, seq_len: int,
-                      seed: int = 0) -> np.ndarray:
-    """(batch, seq_len) int32 random tokens from a numpy seed — the
-    port's counterpart of ``materialize_batch`` for prefill calibration
-    (the reference draws with jax.random, which torch cannot repeat)."""
+                      seed: int = 0) -> Dict[str, np.ndarray]:
+    """A prefill batch from a numpy seed — the port's counterpart of
+    ``materialize_batch`` for calibration (the reference draws with
+    jax.random, which torch cannot repeat): ``tokens`` (batch, seq_len)
+    int32 and, for vlm, ``patches`` (batch, n_patches, vit_dim) f32
+    standard normal."""
     rng = np.random.default_rng(seed)
-    return rng.integers(0, min(cfg.vocab, 1000), (batch, seq_len),
-                        dtype=np.int32)
+    out = {"tokens": rng.integers(0, min(cfg.vocab, 1000),
+                                  (batch, seq_len), dtype=np.int32)}
+    if cfg.family == "vlm":
+        out["patches"] = rng.standard_normal(
+            (batch, cfg.n_patches, cfg.vit_dim), dtype=np.float32)
+    return out

@@ -5,8 +5,10 @@
 ``layers.mplinear.collect_act_stats`` hook open and turns each
 projection's observed input absmax into a symmetric 8-bit scale keyed by
 its policy path. Eager torch records directly; the random calibration
-batches come from numpy with the seed (the reference draws them with
-``jax.random``, so parity tests pass explicit ``prompts=`` to both).
+batches (tokens, and patches for vlm) come from numpy with the seed (the
+reference draws them with ``jax.random``, so parity tests pass explicit
+``prompts=`` to both). With ``prompts=`` no patches are passed, as in
+the reference, so a vlm's prefill raises KeyError there.
 """
 from __future__ import annotations
 
@@ -53,9 +55,9 @@ def calibrate_act_scales(cfg, api=None, params=None, *,
                 api.prefill(params, {"tokens": tokens}, caches)
         else:
             for i in range(n_batches):
-                toks = registry.calibration_batch(cfg, batch, seq_len,
-                                                  seed=seed + i)
+                cal = registry.calibration_batch(cfg, batch, seq_len,
+                                                 seed=seed + i)
                 caches = api.init_cache(batch, seq_len, device)
-                api.prefill(params, {"tokens": torch.as_tensor(
-                    toks, device=device)}, caches)
+                api.prefill(params, {k: torch.as_tensor(v, device=device)
+                                     for k, v in cal.items()}, caches)
     return scales_from_absmax(absmax, pct=pct)

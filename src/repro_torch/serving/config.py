@@ -49,11 +49,11 @@ class EngineConfig:
     resolved calibrated activation scales — the operands the fused
     kernels need.
 
-    ``prefill`` is the reference's prefill mode: ``"auto"`` and
-    ``"batched"`` both take the chunked prefill waves (the lm family has
-    them); ``"teacher"`` (teacher-forced prefill, for families without
-    chunked prefill) is accepted here, so checkpoints of either package
-    read back, and refused by the port's engine.
+    ``prefill`` is the admission mode: ``"batched"`` takes the chunked
+    prefill waves (the lm family alone has them; other families raise),
+    ``"teacher"`` feeds each prompt token through one decode step, and
+    ``"auto"`` takes the chunked waves for lm and teacher forcing for
+    every other family.
 
     Observability (``repro_torch.obs``): ``trace=True`` records request
     lifecycle + tick-phase + compile spans on the engine's

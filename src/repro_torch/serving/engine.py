@@ -1,14 +1,20 @@
 """Continuous-batching serving engine (mirror of
 ``repro/serving/engine.py``'s ``ServingEngine``).
 
-Fixed decode slots over one shared KV cache on the device, an
+Fixed decode slots over one shared decode state on the device (KV
+caches, recurrent state, or both), an
 :class:`~repro_torch.serving.scheduler.AdmissionScheduler` in front, and
 a loop in which prefill and decode interleave, per tick:
 
-* **admission** drains the scheduler into free slots;
-* **chunked prefill** advances every prefilling slot by one
-  ``prefill_chunk``-token wave in ONE fixed-shape call
-  (``api.prefill_chunk``: a position-offset write into the live cache);
+* **admission** drains the scheduler into free slots. A family without
+  chunked prefill (``vlm``, ``rwkv``, ``griffin``; any family under
+  ``prefill="teacher"``) admits by teacher forcing: one decode step per
+  prompt token but the last, every other slot fed token 0 at its own
+  position, as the reference does (``_step_slot_token``);
+* **chunked prefill** (``lm`` under ``"auto"``/``"batched"``) advances
+  every prefilling slot by one ``prefill_chunk``-token wave in ONE
+  fixed-shape call (``api.prefill_chunk``: a position-offset write into
+  the live cache);
 * **decode** runs one block of ``decode_block`` steps with on-device
   token selection (``models.registry.make_block_decode``) and syncs the
   host once. ``mid_block_admission`` cuts blocks short while requests
@@ -26,8 +32,8 @@ prefill wave, blocked decode) goes through the engine's program cache
 (``serving.graphs``), the counterpart of the reference's ``jax.jit``: on
 a CUDA device it is captured once per input signature into a CUDA graph
 and replayed after that; on the CPU it is the eager call. The params
-tree and the caches dict are the programs' static arguments, bound by
-identity (the caches update in place).
+tree and the decode state are the programs' static arguments, bound by
+identity (every family updates its state in place).
 
 Host-mirrored slot state (positions, tokens, sampling parameters) lives
 in numpy and reaches the device through copying, blocking transfers
@@ -47,7 +53,6 @@ import torch
 from repro_torch.configs import ModelConfig
 from repro_torch.core import policy as policy_mod
 from repro_torch.device import resolve_device
-from repro_torch.layers.attention import KVCache
 from repro_torch.models import registry
 from repro_torch.obs import MetricsRegistry, ReplicaStats, Tracer, traced_call
 from repro_torch.serving import graphs
@@ -115,12 +120,9 @@ class Request:
         return self.max_new_tokens
 
 
-def _clone_caches(caches):
-    return {k: KVCache(*(t.clone() for t in c)) for k, c in caches.items()}
-
-
 class ServingEngine:
-    """Slot-based continuous batching with chunked prefill admission."""
+    """Slot-based continuous batching with chunked or teacher-forced
+    prefill admission."""
 
     def __init__(self, cfg: ModelConfig, api: registry.ModelAPI, params,
                  config: Optional[EngineConfig] = None, *,
@@ -132,10 +134,6 @@ class ServingEngine:
         self.device = resolve_device(device)
         self.config = config if config is not None else EngineConfig()
         self.cfg = cfg
-        if self.config.prefill == "teacher":
-            raise NotImplementedError(
-                "prefill='teacher' (teacher-forced prefill) is not ported; "
-                "the lm family serves 'auto'/'batched' chunked prefill")
         self.b = self.config.batch_slots
         self.cache_len = self.config.cache_len
         self.clock = clock
@@ -161,6 +159,16 @@ class ServingEngine:
         self.scheduler = scheduler if scheduler is not None \
             else AdmissionScheduler()
         self.completed: Dict[int, Request] = {}
+        # the chunked path needs a prefill that consumes only tokens into
+        # position-tagged (padding-safe) caches: the API's prefill_chunk
+        prefill = self.config.prefill
+        chunked = api.prefill_chunk is not None
+        if prefill == "batched" and not chunked:
+            raise ValueError(
+                f"batched prefill needs a position-tagged token-only "
+                f"prefill; family {cfg.family!r} is not eligible")
+        self._fast_prefill = chunked if prefill == "auto" \
+            else prefill == "batched"
         if self.decode_block > 1:
             uncovered = self._dynamic_fake_int_paths(params)
             if uncovered:
@@ -174,7 +182,7 @@ class ServingEngine:
         self.registry = MetricsRegistry()
         for k in ("ticks", "decode_steps", "host_syncs",
                   "prefill_calls", "prefill_tokens",
-                  "admitted", "submitted",
+                  "teacher_forced_tokens", "admitted", "submitted",
                   "short_blocks", "mid_block_admits", "eos_stops"):
             self.registry.counter(k)
         self.counters = self.registry.counters_view()
@@ -199,16 +207,22 @@ class ServingEngine:
         self._stop_sets: List[frozenset] = [frozenset()] * self.b
         from repro_torch.models.sampling import sample_tokens
         self._select = self._program(sample_tokens, 0, "select")
-        caps = [c.pos.shape[-1] for c in self.caches.values()]
-        self.prefill_chunk = max(
-            min(self.config.prefill_chunk, min(caps), self.cache_len), 1)
-        self._prefill_chunk_fn = self._program(
-            _with_variant(
-                lambda p, c, tokens, offs, lens: api.prefill_chunk(
-                    p, {"tokens": tokens, "offsets": offs,
-                        "lengths": lens}, c),
-                self._variant),
-            2, "prefill_chunk")
+        # the chunk is bounded by the smallest cache ring, so a chunk's
+        # positions occupy distinct slots within each row
+        self.prefill_chunk = self.config.prefill_chunk
+        self._prefill_chunk_fn = None
+        if api.prefill_chunk is not None:
+            caps = [c.shape[-1] for p, c in graphs.leaves(self.caches)
+                    if p[-1] == "pos"]
+            self.prefill_chunk = max(
+                min(self.prefill_chunk, min(caps), self.cache_len), 1)
+            self._prefill_chunk_fn = self._program(
+                _with_variant(
+                    lambda p, c, tokens, offs, lens: api.prefill_chunk(
+                        p, {"tokens": tokens, "offsets": offs,
+                            "lengths": lens}, c),
+                    self._variant),
+                2, "prefill_chunk")
         self._block_fns: Dict[Tuple[int, bool], Callable] = {}
         self._last_block_short = False
         from repro_torch.quant.prepare import weight_resident_bytes
@@ -290,7 +304,7 @@ class ServingEngine:
         plain step at ``decode_block=1``, the blocked program with its
         staging walk otherwise) on a copy of the caches, under a capture
         context manager, and return what the context yielded."""
-        caches = _clone_caches(self.caches)
+        caches = graphs.clone_tree(self.caches)
         zeros = torch.zeros(self.b, dtype=torch.int32, device=self.device)
         with hook() as captured:
             if self.decode_block > 1:
@@ -316,11 +330,13 @@ class ServingEngine:
 
     @torch.no_grad()
     def _check_replays(self, sample: bool) -> Dict[str, List[str]]:
-        """Hold one replay of each of the four programs bit for bit
+        """Hold one replay of each of the engine's programs (the prefill
+        wave where the family has one, the decode step, selection, and
+        the decode block where the family is eligible) bit for bit
         against the same program run eagerly on cloned state
         (``graphs.check_replay``), at this engine's shapes with seeded
         inputs, greedy or sampled: {program: leaves that differ}. The
-        caches are restored afterwards."""
+        decode state is restored afterwards."""
         from repro_torch.models.sampling import make_key
         b, chunk, n = self.b, self.prefill_chunk, self.decode_block
         rng = np.random.default_rng(0)
@@ -335,25 +351,28 @@ class ServingEngine:
         keys = np.array([make_key(self.config.seed, i + 1) for i in range(b)],
                         np.int64)
         prog = lambda fn: getattr(fn, "__wrapped__", fn)  # noqa: E731
-        out = {"prefill_chunk": graphs.check_replay(
-            prog(self._prefill_chunk_fn), self.params, self.caches, tokens,
-            offs, lens)}
+        out = {}
+        if self._prefill_chunk_fn is not None:
+            out["prefill_chunk"] = graphs.check_replay(
+                prog(self._prefill_chunk_fn), self.params, self.caches,
+                tokens, offs, lens)
         out["decode_step"] = graphs.check_replay(
             prog(self._decode), self.params, self.caches, tok[:, None], pos)
         logits, _ = self._decode(self.params, self.caches, tok[:, None], pos)
         out["select"] = graphs.check_replay(
             prog(self._select), keys, logits.clone(), temp, top_k, top_p)
-        carry = registry.DecodeCarry(
-            tok=tok, pos=pos, rem=np.full(b, n, np.int32),
-            taken=np.zeros(b, np.int32),
-            stops=np.full((b, MAX_STOP_IDS), -1, np.int32), temp=temp,
-            top_k=top_k, top_p=top_p, keys=keys)
-        out[f"block_decode[n={n}]"] = graphs.check_replay(
-            prog(self._block_decode(n, sample)), self.params, self.caches,
-            carry)
-        for name, cache in self.caches.items():
-            for dst, src in zip(cache, saved[name]):
-                dst.copy_(src)
+        if registry.block_decode_eligible(self.cfg):
+            carry = registry.DecodeCarry(
+                tok=tok, pos=pos, rem=np.full(b, n, np.int32),
+                taken=np.zeros(b, np.int32),
+                stops=np.full((b, MAX_STOP_IDS), -1, np.int32), temp=temp,
+                top_k=top_k, top_p=top_p, keys=keys)
+            out[f"block_decode[n={n}]"] = graphs.check_replay(
+                prog(self._block_decode(n, sample)), self.params,
+                self.caches, carry)
+        for (_, dst), (_, src) in zip(graphs.leaves(self.caches),
+                                      graphs.leaves(saved)):
+            dst.copy_(src)
         return out
 
     def routing_report(self) -> Dict[str, str]:
@@ -474,6 +493,7 @@ class ServingEngine:
         if not free:
             return
         now = self.clock()
+        teacher: List[Tuple[int, Request]] = []
         for req in self.scheduler.select(len(free), now):
             req.admit_time = now
             req.tokens = [int(t) for t in req.prompt]
@@ -500,8 +520,17 @@ class ServingEngine:
             if len(req.prompt) == 1:
                 req.next_input = int(req.prompt[0])
                 self._req_decode_start(req)
-            else:
+            elif self._fast_prefill:
                 req.next_input = None     # prefills in chunk waves
+            else:
+                req.next_input = int(req.prompt[-1])
+                teacher.append((slot, req))
+        for slot, req in teacher:
+            for t in req.prompt[:-1]:
+                self._step_slot_token(slot, int(t))
+            req.prefill_pos = len(req.prompt) - 1
+            self.counters["teacher_forced_tokens"] += len(req.prompt) - 1
+            self._req_decode_start(req)
 
     def _req_decode_start(self, req: Request):
         if self.tracer.enabled:
@@ -542,6 +571,20 @@ class ServingEngine:
             else:
                 self.pos[s] = req.prefill_pos
         return True
+
+    def _step_slot_token(self, slot: int, token: int) -> int:
+        """Teacher forcing: one decode step (the engine's ``decode_step``
+        program) feeds ``token`` to ``slot``; every other slot is fed
+        token 0 at its own position, as in the reference. For recurrent
+        state that pad folds into the other slots' state, as it does in
+        the reference. Returns the slot's argmax (one host sync)."""
+        tok = np.zeros((self.b, 1), np.int32)
+        tok[slot, 0] = token
+        logits, self.caches = self._decode(self.params, self.caches, tok,
+                                           self.pos)
+        self.pos[slot] += 1
+        self.counters["host_syncs"] += 1
+        return int(torch.argmax(logits[slot]))
 
     # --------------------------------------------------------- decode loop
 

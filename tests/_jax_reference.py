@@ -14,7 +14,9 @@ Each task returns plain dicts of numpy arrays and Python values; the
 caller reads them back with pickle (a file this script just wrote). The
 optional ``<arch>`` sets ``ARCH`` (qwen2-0.5b by default) for the task:
 ``arch`` computes everything ``tests/test_torch_archs.py`` compares for
-one architecture in one process.
+one architecture in one process, and ``family`` everything
+``tests/test_torch_families.py`` compares for one of the vlm, rwkv and
+griffin architectures.
 """
 import dataclasses
 import os
@@ -162,6 +164,9 @@ ENGINE_CASES = {
     "int4_off_b4": ("int4_serving", dict(decode_block=4,
                                          fused_executors="off")),
     "fp16_ipu_b4": ("fidelity_fp16_ipu", dict(decode_block=4)),
+    # admission by teacher forcing on the lm family
+    "int8_teacher": ("int8_serving", dict(decode_block=1,
+                                          prefill="teacher")),
 }
 # stop ids taken from the greedy streams, so that EOS stopping fires
 # mid-stream (and mid-block) under every policy the cases serve
@@ -470,9 +475,133 @@ def task_arch():
     return out
 
 
+# the families the engine serves by teacher forcing
+# (``tests/test_torch_families.py``), and the decode blocks served
+FAMILY_ARCHS = ("internvl2-1b", "rwkv6-1.6b", "recurrentgemma-9b")
+FAMILY_POLICIES = ("bf16", "int8_serving", "int4_serving")
+FAMILY_BLOCKS = {"internvl2-1b": (1, 4), "rwkv6-1.6b": (1,),
+                 "recurrentgemma-9b": (1,)}
+FAMILY_DECODE_STEPS = 3
+
+
+def calib_batch(cfg, batch, seq_len, seed):
+    """The port's ``registry.calibration_batch`` in numpy: random tokens
+    and, for vlm, standard-normal patches."""
+    rng = np.random.default_rng(seed)
+    out = {"tokens": rng.integers(0, min(cfg.vocab, 1000),
+                                  (batch, seq_len), dtype=np.int32)}
+    if cfg.family == "vlm":
+        out["patches"] = rng.standard_normal(
+            (batch, cfg.n_patches, cfg.vit_dim), dtype=np.float32)
+    return out
+
+
+def family_inputs(cfg):
+    """The prefill batch of the forward cases (patches for vlm)."""
+    rng = np.random.default_rng(3)
+    out = {"tokens": rng.integers(0, 512, (2, 12)).astype(np.int32)}
+    if cfg.family == "vlm":
+        out["patches"] = rng.standard_normal(
+            (2, cfg.n_patches, cfg.vit_dim)).astype(np.float32)
+    return out
+
+
+def batch_scales(cfg, api, params, n_batches=2, batch=2, seq_len=16,
+                 seed=0):
+    """``calibrate_act_scales``' random path over ``calib_batch``'s
+    numpy batches instead of ``materialize_batch``'s jax.random ones."""
+    import jax
+    import jax.numpy as jnp
+
+    from repro.layers import mplinear
+    from repro.quant.calibrate import scales_from_absmax
+    with mplinear.collect_act_stats() as absmax:
+        for i in range(n_batches):
+            cal = calib_batch(cfg, batch, seq_len, seed + i)
+            api.prefill(params, {k: jnp.asarray(v) for k, v in cal.items()},
+                        api.init_cache(batch, seq_len))
+        jax.effects_barrier()
+    return scales_from_absmax(absmax)
+
+
+def task_family():
+    """For ``ARCH`` (vlm, rwkv or griffin) under ``FAMILY_POLICIES``:
+    scales calibrated on ``calib_batch`` (jitted and op by op) and, op
+    by op, on the prompts; per policy and executor variant, prefill logits and
+    state, then greedy decode steps from that state; and the trace
+    through the reference engine under ``int4_serving`` (those scales,
+    ``prefill="auto"``) per decode block."""
+    import jax
+    import jax.numpy as jnp
+
+    from repro.configs import reduced
+    from repro.core.policy import get_policy
+    from repro.layers.mplinear import executor_variant
+    from repro.models import registry
+    from repro.quant.calibrate import calibrate_act_scales
+    from repro.serving import EngineConfig
+    from repro.serving.engine import ServingEngine
+
+    os.environ["REPRO_FUSED_BACKEND"] = "xla"
+    base = reduced(ARCH)
+    params = registry.build(base).init(jax.random.PRNGKey(0))
+    out = {"params": _np_tree(params), "cases": {}, "scales": {},
+           "eager_scales": {}, "prompt_scales": {}, "serving": {}}
+    inp = family_inputs(base)
+    n_p = base.n_patches or 0
+    for pol in FAMILY_POLICIES:
+        cfg = dataclasses.replace(base, precision_policy=pol)
+        api = registry.build(cfg)
+        scales = None
+        if pol in CALIBRATED:
+            scales = batch_scales(cfg, api, params)
+            with jax.disable_jit():
+                out["eager_scales"][pol] = batch_scales(cfg, api, params)
+                if cfg.family != "vlm":    # vlm's prefill needs patches
+                    out["prompt_scales"][pol] = calibrate_act_scales(
+                        cfg, api, params, prompts=calib_prompts())
+        out["scales"][pol] = scales
+        prepared = api.prepare(params, get_policy(pol), act_scales=scales)
+        for variant in (None, "fused"):
+            with executor_variant(variant):
+                logits, state = api.prefill(
+                    prepared, {k: jnp.asarray(v) for k, v in inp.items()},
+                    api.init_cache(2, 16))
+                prefill_state = _np_tree(state)
+                tok = jnp.argmax(logits, -1).astype(jnp.int32)[:, None]
+                pos = jnp.full((2,), 12 + n_p, jnp.int32)
+                steps = []
+                for _ in range(FAMILY_DECODE_STEPS):
+                    lg, state = api.decode_step(
+                        prepared, {"token": tok, "pos": pos}, state)
+                    steps.append(np.asarray(lg))
+                    tok = jnp.argmax(lg, -1).astype(jnp.int32)[:, None]
+                    pos = pos + 1
+            out["cases"][(pol, variant)] = {
+                "prefill_logits": np.asarray(logits),
+                "prefill_state": prefill_state, "decode_logits": steps,
+                "decode_state": _np_tree(state)}
+    cfg = dataclasses.replace(base, precision_policy="int4_serving")
+    api = registry.build(cfg)
+    for blk in FAMILY_BLOCKS[ARCH]:
+        config = EngineConfig(batch_slots=2, cache_len=64, prefill_chunk=4,
+                              decode_block=blk,
+                              act_calibration=out["scales"]["int4_serving"])
+        eng, streams = drive_trace(
+            lambda: ServingEngine(cfg, api, params, config=config),
+            _greedy_request, STOPS)
+        out["serving"][blk] = {
+            "streams": streams, "counters": dict(eng.counters),
+            "fused": eng.fused, "fast_prefill": eng._fast_prefill,
+            "weight_quant": eng.weight_quant_trace_count(),
+            "act_quant": eng.act_quant_trace_count()}
+    return out
+
+
 TASKS = {"lm": task_lm, "serving": task_serving, "plan": task_plan,
          "checkpoint": task_checkpoint, "router": task_router,
-         "arch": task_arch, "rebuild": task_rebuild}
+         "arch": task_arch, "rebuild": task_rebuild,
+         "family": task_family}
 
 
 if __name__ == "__main__":

@@ -526,6 +526,10 @@ def test_engine_config_fields_are_the_references():
 
 
 def test_teacher_prefill_is_refused_and_batched_serves_as_auto():
+    """Every prefill mode an engine config can carry serves: "batched"
+    as "auto" (chunked waves for lm), and "teacher" (once refused by the
+    port's engine, now teacher-forced admission) with the same streams
+    and a teacher-forced step per prompt token but the last."""
     params = _ref_params()
     cfg = reduced(ARCH)
 
@@ -535,10 +539,11 @@ def test_teacher_prefill_is_refused_and_batched_serves_as_auto():
                                                  prefill_chunk=4,
                                                  prefill=prefill),
                              device="cpu")
-    with pytest.raises(NotImplementedError, match="teacher"):
-        engine("teacher")
+    teacher, streams = drive_trace(lambda: engine("teacher"), _greedy, {})
+    assert teacher.counters["teacher_forced_tokens"] > 0
+    assert teacher.counters["prefill_calls"] == 0
     assert drive_trace(lambda: engine("batched"), _greedy, {})[1] \
-        == drive_trace(lambda: engine("auto"), _greedy, {})[1]
+        == drive_trace(lambda: engine("auto"), _greedy, {})[1] == streams
 
 
 def test_config_dicts_round_trip_and_refuse_drift():

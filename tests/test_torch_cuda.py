@@ -1197,3 +1197,126 @@ def test_fused_dequant_at_gemma2_shapes(cuda, kind, k, n):
         sa = (x.abs().amax() / 127).reshape(())
         for act in tfused.ACTS:
             _fd_check(x, w, sw, sa, kind, act)
+
+
+# the new families' projection shapes (K, N): rwkv6-1.6b's channel mix,
+# recurrentgemma-9b's MLP and MQA wk/wv
+FAMILY_SHAPES = [(2048, 7168), (7168, 2048), (4096, 12288), (12288, 4096),
+                 (4096, 256)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,n", FAMILY_SHAPES, ids=str)
+@pytest.mark.parametrize("kind", ["int4_packed", "int8"])
+def test_fused_dequant_at_family_shapes(cuda, kind, k, n):
+    """``fused_dequant_mm`` at rwkv6-1.6b's and recurrentgemma-9b's new
+    projection shapes, M in {8, 256}, each act step: within 2 gamma_K of
+    its plain version."""
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(10)
+    w, sw = _stored(gen, k, n, kind, 1, cuda)
+    for m in (8, 256):
+        x = torch.randn((m, k), generator=gen, device=cuda) * 2
+        sa = (x.abs().amax() / 127).reshape(())
+        for act in tfused.ACTS:
+            _fd_check(x, w, sw, sa, kind, act)
+
+
+FAMILY_ARCHS = ["internvl2-1b", "rwkv6-1.6b", "recurrentgemma-9b"]
+
+
+def _family_engine(arch, device, params=None, scales="auto", **kw):
+    from repro_torch.serving import EngineConfig
+    from repro_torch.serving.engine import ServingEngine
+    cfg = dataclasses.replace(reduced(arch), precision_policy="int4_serving")
+    api = registry.build(cfg)
+    if params is None:
+        params = registry.init_params(cfg, seed=0, device=device)
+    return ServingEngine(cfg, api, params, config=EngineConfig(
+        batch_slots=2, cache_len=32, act_calibration=scales,
+        fused_executors="on", **kw), device=device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", FAMILY_ARCHS)
+def test_family_state_updates_in_place_across_replays(cuda, arch):
+    """The decode step's graph, replayed twice, writes the new state into
+    the tensors it was captured with (the same addresses), bit-equal to
+    the same steps run eagerly on a copy of the state."""
+    from repro_torch.serving import graphs
+    eng = _family_engine(arch, cuda)
+    ptrs = [t.data_ptr() for _, t in graphs.leaves(eng.caches)]
+    eager = graphs.clone_tree(eng.caches)
+    pos = np.zeros(2, np.int32)
+    for i, tok in enumerate(([[3], [5]], [[7], [11]], [[2], [9]])):
+        tok = np.asarray(tok, np.int32)
+        logits, eng.caches = eng._decode(eng.params, eng.caches, tok,
+                                         pos + i)
+        with eng._graphs._eager_calls():
+            want, eager = eng._decode(eng.params, eager, tok, pos + i)
+        assert graphs.same_bits(logits, want), i
+        assert [t.data_ptr() for _, t in graphs.leaves(eng.caches)] == ptrs
+        for (p, a), (_, b) in zip(graphs.leaves(eng.caches),
+                                  graphs.leaves(eager)):
+            assert graphs.same_bits(a, b), (i, p)
+    assert eng.metrics()["graphs"]["replays"] == 2
+    checks = eng._check_replays(False)
+    assert all(v == [] for v in checks.values()), checks
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", FAMILY_ARCHS)
+def test_family_engine_on_the_card_matches_the_cpu(cuda, arch):
+    """A reduced engine per family under ``int4_serving`` (calibrated on
+    the CPU, fused), on the card and on the CPU from the same weights:
+    the card's graphed and eager waves give the same streams and
+    launches; its teacher-forced admission counts as the CPU's; and one
+    decode step from the same state agrees with the CPU's logits within
+    1e-2 relative RMS (phase 5's first-layer tolerance)."""
+    from repro_torch.convert import tree_to
+    from repro_torch.serving import Request, graphs
+    cpu = _family_engine(arch, "cpu")
+    params = tree_to(registry.init_params(cpu.cfg, seed=0, device="cpu"),
+                     cuda)
+    rng = np.random.default_rng(4)
+
+    def reqs():
+        return [Request(rid=i, prompt=rng.integers(0, 512, n,
+                                                   dtype=np.int32),
+                        max_new_tokens=4) for i, n in enumerate((5, 9, 3))]
+
+    def serve(eng, eager=False):
+        import contextlib
+        before = tops.launch_counts()
+        calls = eng._graphs._eager_calls() if eager \
+            else contextlib.nullcontext()
+        with calls:
+            for r in reqs():
+                eng.submit(r)
+            eng.run_until_drained()
+        torch.cuda.synchronize()
+        launched = {k: v - before.get(k, 0)
+                    for k, v in tops.launch_counts().items()}
+        return ({r.rid: list(r.tokens) for r in eng.completed.values()},
+                launched)
+
+    rng = np.random.default_rng(4)
+    card = _family_engine(arch, cuda, params, scales=cpu.act_scales)
+    graphed, n_graphed = serve(card)
+    rng = np.random.default_rng(4)
+    eager, n_eager = serve(_family_engine(arch, cuda, params,
+                                          scales=cpu.act_scales), True)
+    assert graphed == eager and n_graphed == n_eager
+    assert n_graphed["fused_dequant_mm"] > 0
+    rng = np.random.default_rng(4)
+    serve(cpu)
+    assert card.counters["teacher_forced_tokens"] == \
+        cpu.counters["teacher_forced_tokens"] == 4 + 8 + 2
+    tok = np.asarray([[11], [13]], np.int32)
+    pos = np.asarray([20, 21], np.int32)
+    with card._graphs._eager_calls():
+        lc, _ = card._decode(card.params,
+                             tree_to(graphs.clone_tree(cpu.caches), cuda),
+                             tok, pos)
+    lp, _ = cpu._decode(cpu.params, cpu.caches, tok, pos)
+    assert _rel_rms(lc.cpu(), lp) <= 1e-2

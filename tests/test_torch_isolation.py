@@ -10,7 +10,8 @@ fallback, and no compiler needed to import it.
 * Entry points default to CUDA: without a CUDA device and without an
   explicit ``device="cpu"`` they raise (the engine, ``init_params``,
   calibration, ``build_engine``, ``build_replicas`` and
-  ``restore_checkpoint``).
+  ``restore_checkpoint``), for every served family; ``encdec`` is not
+  ported and raises.
 * Without ``nvcc`` the kernel loader raises a clear error; it never
   hands back a plain version.
 """
@@ -134,6 +135,17 @@ def test_serving_surface_modules_stand_alone():
     _imports_alone(SERVING_SURFACE_MODULES)
 
 
+FAMILY_MODULES = ("repro_torch.layers.rwkv6", "repro_torch.layers.rglru",
+                   "repro_torch.models.vlm", "repro_torch.models.rwkv",
+                   "repro_torch.models.griffin")
+
+
+def test_family_modules_stand_alone():
+    """The vlm, rwkv and griffin modules, each imported first in a fresh
+    interpreter, as above."""
+    _imports_alone(FAMILY_MODULES)
+
+
 @pytest.fixture
 def no_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -219,3 +231,29 @@ def test_build_flags_are_exact():
         text = (_build.CSRC / f"{src}.cu").read_text()
         assert "extern \"C\"" in text
         assert "torch/extension.h" not in text
+
+
+@pytest.mark.parametrize("arch", ("internvl2-1b", "rwkv6-1.6b",
+                                  "recurrentgemma-9b"))
+def test_family_entry_points_raise_without_cuda_unless_asked_for_cpu(
+        no_cuda, arch):
+    cfg = reduced(arch)
+    api = registry.build(cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        registry.init_params(cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        api.init_cache(2, 8)
+    params = registry.init_params(cfg, device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ServingEngine(cfg, api, params)
+    eng = ServingEngine(cfg, api, params, device="cpu")
+    assert eng.device == torch.device("cpu")
+
+
+def test_encdec_is_not_ported():
+    import dataclasses
+    cfg = dataclasses.replace(reduced("qwen2-0.5b"), family="encdec")
+    with pytest.raises(NotImplementedError, match="encdec"):
+        registry.build(cfg)
+    with pytest.raises(NotImplementedError, match="encdec"):
+        registry.projection_paths(cfg)

@@ -7,7 +7,10 @@ mid-decode, an oversized request, stop ids that fire mid-block). Greedy
 streams are held EQUAL, token for token, and so are the engine counters
 (``host_syncs``, ``short_blocks``, ``mid_block_admits``, ``eos_stops``
 and the rest), finish reasons, truncation flags and the per-step
-weight-quant, act-quant and staged-operand counts.
+weight-quant, act-quant and staged-operand counts. One case admits by
+teacher forcing (``prefill="teacher"``: one decode step per prompt
+token, every other slot fed the pad token), and its streams equal the
+chunked-prefill ones.
 
 Sampled streams cannot match ``jax.random``; they are held to the
 port's own contract instead: the same seed gives the same stream, and
@@ -68,11 +71,7 @@ def test_engine_matches_reference(ref, name):
     want = ref[0]["cases"][name]
     eng, streams = _serve(ref, name)
     assert streams == want["streams"]
-    # the reference's teacher-forced prefill (for families without
-    # chunked prefill) has no counterpart in the port: it counts 0 here
-    want_counters = dict(want["counters"])
-    assert want_counters.pop("teacher_forced_tokens") == 0
-    assert dict(eng.counters) == want_counters
+    assert dict(eng.counters) == want["counters"]
     assert {r.rid: r.finish_reason for r in eng.completed.values()} \
         == want["finish"]
     assert {r.rid: r.truncated for r in eng.completed.values()} \
@@ -84,7 +83,8 @@ def test_engine_matches_reference(ref, name):
     # on the CPU each program is the eager call: signatures, no graphs
     programs = eng.metrics()["graphs"]
     assert programs["captures"] == programs["replays"] == 0
-    assert programs["signatures"] >= 2
+    # a prefill wave and a decode step; teacher forcing needs no wave
+    assert programs["signatures"] >= (2 if eng._fast_prefill else 1)
 
 
 def test_fused_on_and_off_identical_under_exact_int(ref):
@@ -173,3 +173,73 @@ def _projection_leaves(eng):
     from repro_torch.quant.prepare import iter_projection_weights
     return [w for _, w in iter_projection_weights(
         eng.params, registry.projection_paths(eng.cfg))]
+
+
+def test_teacher_forced_streams_equal_chunked(ref):
+    """qwen2 under ``prefill="teacher"`` serves the trace with the same
+    greedy streams as under chunked prefill, with no prefill wave and a
+    teacher-forced step (and host sync) per prompt token but the last."""
+    teacher, streams = _serve(ref, "int8_teacher")
+    chunked, base = _serve(ref, "int8_b1")
+    assert streams == base
+    c, c1 = teacher.counters, chunked.counters
+    assert c["prefill_calls"] == c["prefill_tokens"] == 0
+    assert c["teacher_forced_tokens"] == c1["prefill_tokens"] == sum(
+        n - 1 for n, _, _ in TRACE.values())
+    # one sync a decode step (decode_block 1) and one a forced token
+    assert c["host_syncs"] == c["decode_steps"] + c["teacher_forced_tokens"]
+    assert c1["host_syncs"] == c1["decode_steps"]
+    assert "prefill_chunk" not in teacher.metrics()["graphs"]["programs"]
+
+
+def test_matches_teacher_forced_admission(ref):
+    """Mirror of ``tests/test_serving.py::
+    test_matches_teacher_forced_admission``: chunked waves and teacher
+    forcing leave the same per-slot cache prefix, positions and next
+    inputs, and the first decode step sees the same distribution (the
+    reference's tolerances: 0.05 on caches, 0.1 on logits)."""
+    import torch
+    from repro_torch.convert import to_numpy
+    cfg = dataclasses.replace(reduced("qwen2-0.5b"), precision_policy="bf16")
+    api = registry.build(cfg)
+    lengths = [5, 1, 9]          # mixed: one slot needs no prefill
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab, n, dtype=np.int32)
+               for n in lengths]
+    engines = {}
+    for mode in ("batched", "teacher"):
+        eng = ServingEngine(cfg, api, ref[1], config=EngineConfig(
+            batch_slots=3, cache_len=64, prefill=mode, prefill_chunk=4),
+            device="cpu")
+        for i, p in enumerate(prompts):
+            eng.submit(Request(rid=i, prompt=p, max_new_tokens=2))
+        eng._admit()
+        while eng._prefill_tick():   # drain the chunked waves
+            pass
+        engines[mode] = eng
+    fast, slow = engines["batched"], engines["teacher"]
+    assert np.array_equal(fast.pos, slow.pos)
+    # 4 + 8 prompt tokens at chunk 4: two packed waves
+    assert fast.counters["prefill_calls"] == 2
+    assert slow.counters["teacher_forced_tokens"] == sum(
+        n - 1 for n in lengths)
+    for name in fast.caches:
+        for lf, ls in zip(to_numpy(fast.caches[name]),
+                          to_numpy(slow.caches[name])):
+            for slot, n in enumerate(lengths):
+                if n > 1:
+                    np.testing.assert_allclose(
+                        lf[:, slot, :n - 1], ls[:, slot, :n - 1],
+                        rtol=0.05, atol=0.05)
+    tok = np.zeros((fast.b, 1), np.int32)
+    for s_ in range(fast.b):
+        tok[s_, 0] = fast.slot_req[s_].next_input
+        assert fast.slot_req[s_].next_input == slow.slot_req[s_].next_input
+
+    def first_logits(eng):
+        with torch.no_grad():
+            logits, _ = eng._decode(eng.params, eng.caches, tok, eng.pos)
+        return logits.numpy()
+
+    np.testing.assert_allclose(first_logits(fast), first_logits(slow),
+                               rtol=0.1, atol=0.1)
