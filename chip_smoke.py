@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--report PATH] [--profile]
 
-Drives the port (``src/repro_torch``) on the card, in twelve phases,
+Drives the port (``src/repro_torch``) on the card, in fourteen phases,
 each printing one line that starts with ``phase``:
 
 1. device and build: the card's name and power limit (nvidia-smi), and
@@ -45,8 +45,9 @@ each printing one line that starts with ``phase``:
    projection shape; then every kernel at the projection shapes of
    gemma2-9b and qwen3-moe-30b-a3b (K and N up to 14336) at M in {8,
    256} (``mp_matmul`` at gemma2's wk, M = 8), and at those of
-   rwkv6-1.6b, recurrentgemma-9b and internvl2-1b's projector, with each
-   shape's launch plans printed;
+   rwkv6-1.6b, recurrentgemma-9b, internvl2-1b's projector and
+   seamless-m4t-medium (also at M = 1024: its encoder and its
+   cross-attention's K and V), with each shape's launch plans printed;
 3. full-width qwen2-0.5b (24 layers, d_model 896, vocab 151936, random
    weights from a seed) served by the port's ``ServingEngine`` under
    ``int4_serving`` with calibrated act scales and the fused executors:
@@ -125,9 +126,31 @@ each printing one line that starts with ``phase``:
    prefill behind 256 patches
    (its projector through ``fused_dequant_mm`` at 512 rows), on the card
    against the CPU; tok/s, TTFT, a replayed decode step's time and
-   ``memory_allocated`` raw, prepared and peak.
+   ``memory_allocated`` raw, prepared and peak;
+13. seamless-m4t-medium (encdec) whole at full width (12 encoder and 12
+   decoder layers of 1024, 16 heads of 64, d_ff 4096, vocab 256206,
+   frontend 160), random weights from a seed: first a decode step after
+   a prefill of S tokens against a prefill of S + 1 at f32 compute
+   (bf16 policy; ``test_prefill_decode_consistency``'s 2e-2 as a
+   relative RMS, on the card and on the CPU), then
+   calibrated (random path, with frames) and prepared under
+   ``int4_serving`` and ``int8_serving`` with only the prepared trees
+   kept; per policy, 8 rows of 32-token prompts behind 128 frames, 16
+   greedy new tokens, cache 64, through the fused executors: exactly 217
+   ``fused_dequant_mm`` launches a prefill and 132 a decode step (the
+   cross-attention's K and V are projected again every step) and no
+   other kernel, the decode steps eager and replayed from one CUDA graph
+   (equal streams, bit-identical logits), the first encoder and decoder
+   blocks card against CPU within phase 5's first-layer tolerance and
+   the whole prefill's logits and encoder output within its whole-model
+   gates; prefill and decode step times (eager, replayed), tok/s of a
+   greedy run, ``memory_allocated`` raw, prepared and peak;
+14. the serving smoke (``repro_torch.serving.smoke.main`` with the
+   reference's defaults and ``--trace``) on the card: exit 0, every
+   contract of the reference's smoke, and a trace
+   ``validate_chrome_trace`` finds no fault in; its contract numbers.
 
-Phases 8-12 assert that f32 matmuls do not run on TF32 (a TF32
+Phases 8-13 assert that f32 matmuls do not run on TF32 (a TF32
 router moves expert selection); each phase frees its model before the
 next.
 
@@ -139,7 +162,8 @@ the repository around it, it exits non-zero before printing either.
 adds a torch.profiler breakdown of one decode block, replayed from its
 graph and run eagerly, under ``int4_serving`` (phase 3),
 ``fidelity_int8`` fused (phase 4), ``fidelity_fp16_ipu`` (phase 6) and
-``int4_serving`` for the models of phases 8-12.
+``int4_serving`` for the models of phases 8-12, and (phase 13) one
+replayed decode step of seamless-m4t-medium under each policy.
 """
 import argparse
 import dataclasses
@@ -1319,7 +1343,7 @@ def _time_mpmm(gen, rates, cfg):
     return out
 
 
-# the projection shapes of the models phases 8-12 serve (K, N)
+# the projection shapes of the models phases 8-13 serve (K, N)
 NEW_SHAPES = (
     ("gemma2-9b", (("wq", 3584, 4096), ("wk", 3584, 2048),
                    ("wv", 3584, 2048), ("wo", 4096, 3584),
@@ -1333,16 +1357,25 @@ NEW_SHAPES = (
                            ("w_gate", 4096, 12288),
                            ("w_down", 12288, 4096))),
     ("internvl2-1b", (("projector/fc1", 1024, 896),)),
+    ("seamless-m4t-medium", (("frontend_proj", 160, 1024),
+                             ("wq", 1024, 1024), ("w_gate", 1024, 4096),
+                             ("w_down", 4096, 1024))),
 )
+# rows (M) each model's shapes run at; 8 and 256 by default.
+# seamless-m4t-medium's encoder and its decoder's cross-attention K and V
+# (phase 13) run at 8 rows x 128 frames
+SHAPE_ROWS = {"seamless-m4t-medium": (8, 256, 1024)}
 
 
 def _check_new_shapes(gen, cfg, err):
     """Every kernel against its plain version at the projection shapes
     of gemma2-9b and qwen3-moe-30b-a3b (head_dim 256 and 128, K and N up
     to 14336), rwkv6-1.6b (2048 <-> 7168), recurrentgemma-9b (4096 <->
-    12288, MQA wk 4096 -> 256) and internvl2-1b's projector (1024 ->
-    896), M in {8, 256}: ``fused_dequant_mm`` over int4_packed and
-    int8 under each act step within 2 gamma_K, ``fused_qmm`` (int8 and
+    12288, MQA wk 4096 -> 256), internvl2-1b's projector (1024 -> 896)
+    and seamless-m4t-medium (its frontend 160 -> 1024, 1024 <-> 4096),
+    M in {8, 256} (and 1024 for seamless-m4t-medium):
+    ``fused_dequant_mm`` over int4_packed and int8 under each act step
+    within 2 gamma_K, ``fused_qmm`` (int8 and
     int4_packed), ``qmm`` and ``qmm_packed`` bit-equal; ``mp_matmul``
     bit-equal at gemma2's wk at M = 8. Returns (comparisons, each
     shape's launch plans)."""
@@ -1351,7 +1384,7 @@ def _check_new_shapes(gen, cfg, err):
     plans, n_cmp = {}, 0
     for arch, layer in NEW_SHAPES:
         for name, k, n in layer:
-            for m in (8, 256):
+            for m in SHAPE_ROWS.get(arch, (8, 256)):
                 x = torch.randn((m, k), generator=gen, device="cuda") * 2
                 sa = (x.abs().amax() / 127).reshape(())
                 a = ref.quantize_act_ref(x, sa).to(torch.int8)
@@ -1413,7 +1446,7 @@ def phase_kernels(rates):
     n_int_tc = _check_int_tc(gen)
     n_cmp += n_fd + n_qmm + n_int_tc + _check_mpmm(gen, fidelity)
     n_new, new_plans = _check_new_shapes(gen, fidelity, err)
-    print("phase 2 plans at the shapes of the models phases 8-12 serve: "
+    print("phase 2 plans at the shapes of the models phases 8-13 serve: "
           + json.dumps(new_plans), flush=True)
     qmm_plans = _time_qmm_plans(gen)
     fused_qmm_plans = {kind: _time_int_tc_plans(gen, "fused_qmm", kind)
@@ -1644,6 +1677,19 @@ def _profile(eng, cfg):
             "eager": _profile_block(eng, cfg, eager=True)}
 
 
+def _kernel_rows(prof):
+    """(kernel, device ms, calls) of a profile, the longest first."""
+    rows = []
+    for ev in prof.key_averages():
+        dev = getattr(ev, "device_time_total", None)
+        if dev is None:
+            dev = getattr(ev, "cuda_time_total", 0)
+        if dev and ev.device_type == torch.autograd.DeviceType.CUDA:
+            rows.append((ev.key, dev / 1e3, ev.count))
+    rows.sort(key=lambda r: -r[1])
+    return rows
+
+
 def _profile_block(eng, cfg, eager):
     """Kernel time by name and the device's busy share over one decode
     block of a full batch. One block runs before it, so a graphed block
@@ -1678,14 +1724,7 @@ def _profile_block(eng, cfg, eager):
     if replayed != (0 if eager else 1):
         raise AssertionError(f"the profiled block replayed {replayed} "
                              f"graphs (eager={eager})")
-    rows = []
-    for ev in prof.key_averages():
-        dev = getattr(ev, "device_time_total", None)
-        if dev is None:
-            dev = getattr(ev, "cuda_time_total", 0)
-        if dev and ev.device_type == torch.autograd.DeviceType.CUDA:
-            rows.append((ev.key, dev / 1e3, ev.count))
-    rows.sort(key=lambda r: -r[1])
+    rows = _kernel_rows(prof)
     busy_ms = sum(r[1] for r in rows)
     return {"mode": "eager" if eager else "graphs",
             "wall_ms": wall * 1e3, "decode_steps": eng.decode_block,
@@ -2760,6 +2799,418 @@ def phase_family(arch, smi, profile):
     return launches
 
 
+# ------------------------------------------------------------- phase 13
+
+ENCDEC = "seamless-m4t-medium"
+ENCDEC_POLICIES = ("int4_serving", "int8_serving")
+# 8 rows of 32-token prompts behind 128 frames (the reference's
+# seq_len // 4 for 512), 16 greedy new tokens, a 64-token cache
+ENCDEC_ROWS, ENCDEC_PROMPT, ENCDEC_FRAMES = 8, 32, 128
+ENCDEC_NEW, ENCDEC_CACHE = 16, 64
+# prefill against decode (tests/test_models_smoke.py::
+# test_prefill_decode_consistency's 2e-2), held here as a relative RMS:
+# at full width its pointwise atol = rtol = 2e-2 fails on the CPU too,
+# where rounding alone, not the cache, sets the difference (see
+# _encdec_consistency); a wrong slot, tag or mask moves the logits by
+# their whole scale
+CONSISTENCY_TOL = 2e-2
+
+
+def _encdec_launches(cfg):
+    """``fused_dequant_mm`` launches of one prefill and of one decode
+    step, one per projection: the frontend, 7 an encoder layer and 11 a
+    decoder layer (self-attention 4, cross-attention 4, MLP 3) in
+    prefill; the decoder alone in a decode step, whose cross-attention
+    projects its K and V from the encoder output again (1 + 12 x 7 + 12
+    x 11 = 217 and 12 x 11 = 132 at full width)."""
+    from repro_torch.models import encdec
+    return 1 + 7 * encdec.n_enc_layers(cfg) + 11 * cfg.n_layers, \
+        11 * cfg.n_layers
+
+
+def _encdec_batch(cfg, device, seed=13):
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    return {"tokens": torch.randint(0, cfg.vocab,
+                                    (ENCDEC_ROWS, ENCDEC_PROMPT + 1),
+                                    generator=gen, device=device,
+                                    dtype=torch.int32),
+            "frames": torch.randn((ENCDEC_ROWS, ENCDEC_FRAMES,
+                                   cfg.frontend_dim), generator=gen,
+                                  device=device)}
+
+
+def _encdec_greedy(api, tree, batch, program=None, state=None):
+    """Prefill the prompts, then ``ENCDEC_NEW - 1`` greedy decode steps,
+    eager or through ``program`` (the port's program cache: a CUDA graph
+    captured at its first call, replayed after), under the fused
+    executors. ``state`` (caches, encoder-output buffer), where given,
+    takes the prefill's writes, so that a program's static state stays
+    the same tensors from run to run. Returns the tokens (B,
+    ENCDEC_NEW), each decode step's logits (copies), the prefill's
+    logits and encoder output, and the launches of the prefill and of
+    each decode step."""
+    from repro_torch.kernels import ops
+    from repro_torch.layers.mplinear import executor_variant
+    from repro_torch.serving.graphs import count_delta
+    before = ops.launch_counts()
+    prompt = {"tokens": batch["tokens"][:, :ENCDEC_PROMPT],
+              "frames": batch["frames"]}
+    caches = api.init_cache(ENCDEC_ROWS, ENCDEC_CACHE) if state is None \
+        else state[0]
+    with torch.no_grad(), executor_variant("fused"):
+        logits, (_, enc_out) = api.prefill(tree, prompt, caches)
+        if state is None:
+            state = (caches, enc_out)
+        else:
+            state[1].copy_(enc_out)
+    torch.cuda.synchronize()
+    prefill_launches = count_delta(before, ops.launch_counts())
+    first = logits.clone()
+    tok = logits.argmax(-1).to(torch.int32)[:, None]
+    pos = torch.full((ENCDEC_ROWS,), ENCDEC_PROMPT, dtype=torch.int32,
+                     device="cuda")
+    tokens, steps, step_launches = [tok], [], []
+    for _ in range(ENCDEC_NEW - 1):
+        before = ops.launch_counts()
+        if program is None:
+            with torch.no_grad(), executor_variant("fused"):
+                logits, _ = api.decode_step(tree, {"token": tok, "pos": pos},
+                                            state)
+        else:
+            logits, _ = program(tree, state, tok, pos)
+        torch.cuda.synchronize()
+        step_launches.append(count_delta(before, ops.launch_counts()))
+        steps.append(logits.clone())
+        tok = logits.argmax(-1).to(torch.int32)[:, None]
+        tokens.append(tok)
+        pos = pos + 1
+    return (torch.cat(tokens, 1).cpu(), steps, first, enc_out,
+            prefill_launches, step_launches)
+
+
+def _decode_program(api):
+    """A decode step through the port's program cache (static: the tree
+    and the state ``(caches, enc_out)``; dynamic: token and position)."""
+    from repro_torch.layers.mplinear import executor_variant
+    from repro_torch.serving import graphs
+
+    def step(tree, state, tok, pos):
+        with torch.no_grad(), executor_variant("fused"):
+            return api.decode_step(tree, {"token": tok, "pos": pos}, state)
+    programs = graphs.Programs(torch.device("cuda"))
+    return programs, programs.program(step, 2, "decode_step")
+
+
+def _gate_logits(card, cpu, what):
+    """Card against CPU within the whole-model gates: the largest
+    difference within ``CPU_LOGIT_MAX_OF_RANGE`` of the CPU's range and
+    the relative RMS within ``CPU_LOGIT_REL_RMS``."""
+    a, b = card.double().cpu(), cpu.double().cpu()
+    span = float(b.max() - b.min())
+    diff = float((a - b).abs().max())
+    rel = _rel(a, b)
+    out = {"max_abs_diff": diff, "range": span, "rel_rms": rel,
+           "max_tolerance": CPU_LOGIT_MAX_OF_RANGE * span,
+           "rel_rms_tolerance": CPU_LOGIT_REL_RMS}
+    if not bool(torch.isfinite(a).all()) or diff > \
+            CPU_LOGIT_MAX_OF_RANGE * span or rel > CPU_LOGIT_REL_RMS:
+        raise AssertionError(f"{what}: card vs CPU {out}")
+    return out
+
+
+def _encdec_card_vs_cpu(cfg, api, prepared, batch, logits, enc_out):
+    """The first encoder block and the first decoder block (prefill into
+    a fresh cache, cross-attention onto a random encoder output), each
+    from the same random input on the card (fused executors) and on the
+    CPU (plain versions), within ``FIRST_LAYER_REL_RMS``; then the whole
+    prefill on the CPU against the card's logits and encoder output,
+    within the whole-model gates."""
+    from repro_torch.convert import tree_to
+    from repro_torch.core.policy import get_policy
+    from repro_torch.layers.attention import KVCache
+    from repro_torch.layers.mplinear import executor_variant
+    from repro_torch.models import encdec
+    from repro_torch.models.lm import layer_tree
+    policy = get_policy(cfg.precision_policy)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(32)
+    rnd = lambda *shape: torch.randn(shape, generator=gen,  # noqa: E731
+                                     device="cuda").to(torch.bfloat16)
+    x_enc = rnd(ENCDEC_ROWS, ENCDEC_FRAMES, cfg.d_model)
+    x_dec = rnd(ENCDEC_ROWS, ENCDEC_PROMPT, cfg.d_model)
+    enc = rnd(ENCDEC_ROWS, ENCDEC_FRAMES, cfg.d_model)
+
+    def positions(n, dev):
+        return torch.arange(n, dtype=torch.int32, device=dev)[None].expand(
+            ENCDEC_ROWS, n)
+
+    out = {"enc_block0": _card_vs_cpu(
+        lambda t, st, dev: (encdec.encode_block(
+            t, cfg, x_enc.to(dev), positions(ENCDEC_FRAMES, dev), policy),
+            st), layer_tree(prepared["enc_blocks"], 0), ())}
+    c = api.init_cache(ENCDEC_ROWS, ENCDEC_CACHE)
+    out["dec_block0"] = _card_vs_cpu(
+        lambda t, st, dev: (encdec.decode_block(
+            t, cfg, x_dec.to(dev), positions(ENCDEC_PROMPT, dev),
+            enc.to(dev), "prefill", st, None, policy), st),
+        layer_tree(prepared["dec_blocks"], 0),
+        KVCache(c.k[0], c.v[0], c.pos[0]))
+    cpu_tree = tree_to(prepared, "cpu")
+    t0 = time.perf_counter()
+    with torch.no_grad(), executor_variant("fused"):
+        cpu_logits, (_, cpu_enc) = api.prefill(
+            cpu_tree, {"tokens": batch["tokens"][:, :ENCDEC_PROMPT].cpu(),
+                       "frames": batch["frames"].cpu()},
+            api.init_cache(ENCDEC_ROWS, ENCDEC_CACHE, "cpu"))
+    out["prefill_cpu_s"] = time.perf_counter() - t0
+    real = slice(0, cfg.vocab)          # padded columns are -1e30 on both
+    out["prefill_logits"] = _gate_logits(logits[:, real], cpu_logits[:, real],
+                                         "prefill logits")
+    out["enc_out"] = _gate_logits(enc_out, cpu_enc, "encoder output")
+    out["greedy_first_token_equal"] = bool(torch.equal(
+        logits[:, real].argmax(-1).cpu(), cpu_logits[:, real].argmax(-1)))
+    return out
+
+
+def _encdec_consistency(cfg, params, batch, device):
+    """At f32 compute (bf16 policy), a decode step after a prefill of S
+    tokens against the last logits of a prefill of S + 1, the reference's
+    ``test_prefill_decode_consistency`` at full width: relative RMS,
+    largest difference, and the excess over that test's pointwise
+    criterion (``atol = rtol = 2e-2``). Prefill and decode round every
+    projection's output to bf16 (``mp_linear``, as the reference's, at
+    any compute dtype), and their products sum in orders that depend on
+    the row count, so a bf16 rounding can fall the other way between
+    them; over 24 layers of random weights that leaves a few hundredths
+    in the largest logit, on the CPU as on the card."""
+    from repro_torch.convert import tree_to
+    from repro_torch.layers.mplinear import executor_variant
+    from repro_torch.models import registry
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    api32 = registry.build(cfg32)
+    s = ENCDEC_PROMPT
+    tokens, frames = (batch["tokens"].to(device), batch["frames"].to(device))
+    params = tree_to(params, device)
+    t0 = time.perf_counter()
+    with torch.no_grad(), executor_variant("fused"):
+        _, state = api32.prefill(
+            params, {"tokens": tokens[:, :s], "frames": frames},
+            api32.init_cache(ENCDEC_ROWS, s + 1, device))
+        step, _ = api32.decode_step(
+            params, {"token": tokens[:, s:s + 1],
+                     "pos": torch.full((ENCDEC_ROWS,), s, dtype=torch.int32,
+                                       device=device)}, state)
+        whole, _ = api32.prefill(
+            params, {"tokens": tokens, "frames": frames},
+            api32.init_cache(ENCDEC_ROWS, s + 1, device))
+    real = slice(0, cfg.vocab)
+    a, b = step[:, real].double().cpu(), whole[:, real].double().cpu()
+    excess = float(((a - b).abs() - CONSISTENCY_TOL * (1 + b.abs())).max())
+    return {"rel_rms": _rel(a, b), "tolerance": CONSISTENCY_TOL,
+            "max_abs_diff": float((a - b).abs().max()),
+            "logit_std": float(b.std()),
+            "pointwise_excess_over_2e-2": excess,
+            "seconds": time.perf_counter() - t0}
+
+
+def _profile_fn(fn):
+    """Device time by kernel over one call of ``fn`` (after one call
+    outside the profiler), and the call's wall time."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = _kernel_rows(prof)
+    busy = sum(r[1] for r in rows)
+    return {"wall_ms": wall * 1e3, "device_busy_ms": busy,
+            "kernel_launches": sum(r[2] for r in rows),
+            "device_idle_share": 1 - busy / (wall * 1e3) if rows else None,
+            "top_kernels_ms": [[k, t, c] for k, t, c in rows[:15]]}
+
+
+def _encdec_policy(cfg, api, prepared, batch, profile):
+    """One policy's run: the launches of the eager greedy run (217 a
+    prefill, 132 a decode step, no other kernel), the same run with its
+    decode steps replayed from one CUDA graph (streams equal, logits
+    bit-identical), card against CPU, and the times."""
+    from repro_torch.kernels import ops
+    from repro_torch.layers.mplinear import executor_variant
+    from repro_torch.serving import graphs
+    want_prefill, want_step = _encdec_launches(cfg)
+    ops.reset_launch_counts()
+    eager = _encdec_greedy(api, prepared, batch)
+    programs, program = _decode_program(api)
+    static = (api.init_cache(ENCDEC_ROWS, ENCDEC_CACHE),
+              torch.empty_like(eager[3]))
+    replayed = _encdec_greedy(api, prepared, batch, program, static)
+    launches = ops.launch_counts()
+    for what, run in (("eager", eager), ("replayed", replayed)):
+        if run[4] != {"fused_dequant_mm": want_prefill} or any(
+                s != {"fused_dequant_mm": want_step} for s in run[5]):
+            raise AssertionError(f"{cfg.precision_policy} {what}: prefill "
+                                 f"launched {run[4]}, decode steps "
+                                 f"{run[5]}; want {want_prefill} and "
+                                 f"{want_step} fused_dequant_mm")
+    if {k for k, v in launches.items() if v} != {"fused_dequant_mm"}:
+        raise AssertionError(f"encdec launched {launches}")
+    stats = programs.stats()
+    if stats["captures"] != 1 or stats["replays"] != ENCDEC_NEW - 2:
+        raise AssertionError(f"decode program: {stats['captures']} "
+                             f"captures, {stats['replays']} replays")
+    if not torch.equal(eager[0], replayed[0]) or not all(
+            graphs.same_bits(a, b) for a, b in zip(eager[1], replayed[1])):
+        raise AssertionError(f"{cfg.precision_policy}: replayed decode "
+                             f"steps differ from eager ones")
+    out = {"launches": launches, "prefill_launches": eager[4],
+           "step_launches": eager[5][0],
+           "streams_equal_eager_replayed": True,
+           "logits_bit_identical": True, "captures": stats["captures"],
+           "replays": stats["replays"],
+           "card_vs_cpu": _encdec_card_vs_cpu(cfg, api, prepared, batch,
+                                              eager[2], eager[3])}
+    # times: prefill, a decode step eager and replayed, a greedy run
+    prompt = {"tokens": batch["tokens"][:, :ENCDEC_PROMPT],
+              "frames": batch["frames"]}
+    caches = api.init_cache(ENCDEC_ROWS, ENCDEC_CACHE)
+    with torch.no_grad(), executor_variant("fused"):
+        out["prefill_ms"] = median_ms(
+            lambda: api.prefill(prepared, prompt, caches), reps=5, warm=1)
+        _, state = api.prefill(prepared, prompt, caches)
+    tok = eager[0][:, :1].cuda()
+    pos = torch.full((ENCDEC_ROWS,), ENCDEC_PROMPT, dtype=torch.int32,
+                     device="cuda")
+
+    def step():
+        with torch.no_grad(), executor_variant("fused"):
+            api.decode_step(prepared, {"token": tok, "pos": pos}, state)
+    out["decode_step_ms"] = {"eager": median_ms(step, reps=10),
+                             "replayed": graph_ms(step)}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _encdec_greedy(api, prepared, batch, program, static)
+    wall = time.perf_counter() - t0
+    out["greedy_run"] = {"wall_s": wall, "new_tokens": ENCDEC_ROWS
+                         * ENCDEC_NEW,
+                         "tok_per_s": ENCDEC_ROWS * ENCDEC_NEW / wall}
+    if profile:
+        out["profile_replayed_step"] = _profile_fn(
+            lambda: program(prepared, static, tok, pos))
+    del programs, program
+    return out, launches
+
+
+def phase_encdec(smi, profile):
+    """seamless-m4t-medium whole at full width: random f32 weights from a
+    seed, the prefill/decode consistency at f32 compute (bf16 policy, on
+    the card and on the CPU), then calibrated (random path, with frames)
+    and prepared under int4_serving and int8_serving with only the
+    prepared trees kept, and each served greedily through the fused
+    executors."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.policy import get_policy
+    from repro_torch.models import registry
+    from repro_torch.quant.calibrate import calibrate_act_scales
+    _no_tf32()
+    t_phase = time.perf_counter()
+    full = get_config(ENCDEC)
+    torch.cuda.reset_peak_memory_stats()
+    memory = {"allocated_before_init": torch.cuda.memory_allocated()}
+    params = registry.init_params(full, seed=0)
+    torch.cuda.synchronize()
+    memory["allocated_raw_params"] = torch.cuda.memory_allocated()
+    n_params = sum(t.numel() for _, t in _encdec_leaves(params))
+    batch = _encdec_batch(full, "cuda")
+    consistency = {dev: _encdec_consistency(full, params, batch, dev)
+                   for dev in ("cuda", "cpu")}
+    if any(not c["rel_rms"] <= CONSISTENCY_TOL
+           for c in consistency.values()):
+        raise AssertionError(f"prefill/decode consistency: {consistency}")
+    trees = {}
+    for policy in ENCDEC_POLICIES:
+        cfg = dataclasses.replace(full, precision_policy=policy)
+        api = registry.build(cfg)
+        trees[policy] = api.prepare(
+            params, get_policy(policy),
+            act_scales=calibrate_act_scales(cfg, api, params))
+    del params
+    _free()
+    memory["allocated_prepared_only"] = torch.cuda.memory_allocated()
+    memory["max_allocated_preparing"] = torch.cuda.max_memory_allocated()
+    memory["prepared_tree_bytes"] = {
+        policy: sum(t.numel() * t.element_size()
+                    for _, t in _encdec_leaves(tree))
+        for policy, tree in trees.items()}
+    runs, launches = {}, {}
+    for policy in ENCDEC_POLICIES:
+        cfg = dataclasses.replace(full, precision_policy=policy)
+        runs[policy], launches[policy] = _encdec_policy(
+            cfg, registry.build(cfg), trees[policy], batch, profile)
+    prefill_want, step_want = _encdec_launches(full)
+    log(13, card=smi, arch=ENCDEC, parameters=n_params,
+        encoder_layers=full.n_enc_layers, decoder_layers=full.n_layers,
+        rows=ENCDEC_ROWS, prompt=ENCDEC_PROMPT, frames=ENCDEC_FRAMES,
+        new_tokens=ENCDEC_NEW, cache_len=ENCDEC_CACHE,
+        fused_dequant_per_prefill=prefill_want,
+        fused_dequant_per_step=step_want, memory=memory,
+        prefill_decode_consistency=consistency, runs=runs,
+        phase_s=time.perf_counter() - t_phase)
+    del trees
+    _free()
+    return {"fused_dequant_mm": sum(n["fused_dequant_mm"]
+                                    for n in launches.values())}
+
+
+def _encdec_leaves(tree):
+    from repro_torch.quant.prepare import PreparedWeight
+    from repro_torch.serving import graphs
+    out = []
+    for p, t in graphs.leaves(tree):
+        if isinstance(t, PreparedWeight):
+            out += [(p, x) for x in (t.data, t.scale, t.act_scale)
+                    if x is not None]
+        elif isinstance(t, torch.Tensor):
+            out.append((p, t))
+    return out
+
+
+# ------------------------------------------------------------- phase 14
+
+def phase_serving_smoke(smi):
+    """``repro_torch.serving.smoke.main`` with the reference's defaults
+    and ``--trace``, on the card: exit 0, and a trace in which
+    ``validate_chrome_trace`` finds no fault."""
+    import tempfile
+    from repro_torch.kernels import ops
+    from repro_torch.obs import validate_chrome_trace
+    from repro_torch.serving import smoke
+    t_phase = time.perf_counter()
+    summary = {}
+    ops.reset_launch_counts()
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "serving_smoke_trace.json")
+        rc = smoke.main(["--trace", path], summary=summary)
+        torch.cuda.synchronize()
+        launches = ops.launch_counts()
+        with open(path) as f:
+            errors = validate_chrome_trace(json.load(f))
+    if rc != 0 or errors:
+        raise AssertionError(f"serving smoke: exit {rc}, trace faults "
+                             f"{errors[:5]}")
+    if summary.get("device") != "cuda" or not launches["fused_dequant_mm"]:
+        raise AssertionError(f"serving smoke ran off the card: {summary}, "
+                             f"launches {launches}")
+    log(14, card=smi, exit_code=rc, trace_faults=len(errors),
+        launches=launches, contract=summary,
+        phase_s=time.perf_counter() - t_phase)
+    return launches
+
+
 # ---------------------------------------------------------------- main
 
 KERNELS = {
@@ -2782,7 +3233,8 @@ def main():
                     "JSON file")
     ap.add_argument("--profile", action="store_true",
                     help="profile one decode block, replayed from its "
-                    "graph and run eagerly, in phases 3, 4, 6 and 8-12")
+                    "graph and run eagerly, in phases 3, 4, 6 and 8-12, "
+                    "and one replayed decode step in phase 13")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke test needs one",
@@ -2820,15 +3272,18 @@ def main():
     launches9 = phase_gemma2(smi, args.profile)
     launches_families = [phase_family(arch, smi, args.profile)
                          for arch in FAMILIES]
+    launches13 = phase_encdec(smi, args.profile)
+    launches14 = phase_serving_smoke(smi)
 
     main_launches = {
         "fused_dequant_mm": launches3["fused_dequant_mm"]
         + launches7["fused_dequant_mm"] + launches8["fused_dequant_mm"]
         + launches9["fused_dequant_mm"]
-        + sum(n["fused_dequant_mm"] for n in launches_families),
+        + sum(n["fused_dequant_mm"] for n in launches_families)
+        + launches13["fused_dequant_mm"] + launches14["fused_dequant_mm"],
         "fused_qmm": launches4["fidelity_int8"]["fused_qmm"]
-        + launches4["int4_exact"]["fused_qmm"],
-        "qmm": launches4["fidelity_int8"]["qmm"],
+        + launches4["int4_exact"]["fused_qmm"] + launches14["fused_qmm"],
+        "qmm": launches4["fidelity_int8"]["qmm"] + launches14["qmm"],
         "qmm_packed": launches4["int4_exact"]["qmm_packed"],
         "mp_matmul": launches6["mp_matmul"],
     }

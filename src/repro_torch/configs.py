@@ -4,8 +4,8 @@
 field for field; ``get_config`` knows the architectures this port serves
 (``repro/configs/<arch>.py``): the ``lm`` family (qwen2-0.5b,
 gemma2-9b, glm4-9b, stablelm-12b, mixtral-8x7b and qwen3-moe-30b-a3b),
-internvl2-1b (``vlm``), rwkv6-1.6b (``rwkv``) and recurrentgemma-9b
-(``griffin``); and ``reduced`` repeats
+internvl2-1b (``vlm``), rwkv6-1.6b (``rwkv``), recurrentgemma-9b
+(``griffin``) and seamless-m4t-medium (``encdec``); and ``reduced`` repeats
 ``repro/configs/__init__.py::reduced`` (the family-preserving tiny
 variant the CPU tests run).
 """
@@ -27,8 +27,7 @@ class MoESpec:
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     """One architecture. ``family`` selects the model implementation:
-    'lm' (dense and MoE), 'vlm', 'rwkv' or 'griffin' ('encdec' is not
-    ported)."""
+    'lm' (dense and MoE), 'vlm', 'rwkv', 'griffin' or 'encdec'."""
 
     arch_id: str
     family: str
@@ -200,12 +199,26 @@ def recurrentgemma_9b() -> ModelConfig:
         rec_pattern=("rec", "rec", "attn"), tied_embeddings=True)
 
 
+def seamless_m4t_medium() -> ModelConfig:
+    """SeamlessM4T-medium backbone [arXiv:2308.11596]: 12 encoder + 12
+    decoder layers, d_model 1024, 16 heads (MHA, head_dim 64), d_ff
+    4096, vocab 256206, LayerNorm, GeLU, untied. The speech frontend is
+    a stub: precomputed frame embeddings (seq/4 frames of dim 160) enter
+    through a linear projector; self-attention positions use RoPE."""
+    return ModelConfig(
+        arch_id="seamless-m4t-medium", family="encdec", n_layers=12,
+        n_enc_layers=12, d_model=1024, n_heads=16, n_kv_heads=16,
+        head_dim=64, d_ff=4096, vocab=256206, norm="ln", act="gelu",
+        frontend_dim=160, attn_pattern="full", tied_embeddings=False)
+
+
 _CONFIGS = {"qwen2-0.5b": qwen2_0_5b, "gemma2-9b": gemma2_9b,
             "glm4-9b": glm4_9b, "stablelm-12b": stablelm_12b,
             "mixtral-8x7b": mixtral_8x7b,
             "qwen3-moe-30b-a3b": qwen3_moe_30b_a3b,
             "internvl2-1b": internvl2_1b, "rwkv6-1.6b": rwkv6_1_6b,
-            "recurrentgemma-9b": recurrentgemma_9b}
+            "recurrentgemma-9b": recurrentgemma_9b,
+            "seamless-m4t-medium": seamless_m4t_medium}
 ARCH_IDS = tuple(_CONFIGS)
 
 

@@ -8,7 +8,8 @@ the conversion is exact. Prepared trees convert too: a prepared weight
 arrives as ``{data, scale, kind, act_scale}`` (a dict, or any object
 with those attributes) and becomes a ``quant.prepare.PreparedWeight``.
 A decode-state NamedTuple (the reference's ``KVCache``, ``RWKVState``
-or ``RGLRUState``) becomes the port's class with the same fields.
+or ``RGLRUState``) becomes the port's class with the same fields, also
+inside a plain tuple (encdec's ``(KVCache, enc_out)``).
 
 ``to_numpy`` goes the other way for comparisons (bf16 widens to f32,
 which is exact).

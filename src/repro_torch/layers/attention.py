@@ -1,6 +1,7 @@
 """Grouped-query attention with a position-tagged KV cache (mirror of
-``repro/layers/attention.py``, the decoder self-attention features the
-lm family uses: GQA, RoPE, QKV bias, QK-norm, sliding windows, softcap).
+``repro/layers/attention.py``: GQA, RoPE, QKV bias, QK-norm, sliding
+windows, softcap, and the encoder's bidirectional and the decoder's
+cross-attention modes of the encdec family).
 
 The cache ring is updated IN PLACE (the reference returns new arrays):
 ``prefill``, ``prefill_chunk`` and ``decode_step`` write into the
@@ -34,6 +35,7 @@ class AttnConfig:
     window: Optional[int] = None
     attn_softcap: Optional[float] = None
     causal: bool = True
+    cross: bool = False                # cross-attention (no RoPE, kv=ctx)
     scale: Optional[float] = None
     q_chunk: int = 512
     kv_chunk: int = 1024
@@ -84,22 +86,28 @@ def init_cache(batch: int, capacity: int, cfg: AttnConfig, device,
                        device=device))
 
 
-def _project_qkv(params, cfg: AttnConfig, x, positions, policy, path):
+def _project_qkv(params, cfg: AttnConfig, x, positions, policy, path,
+                 kv_input=None):
+    """Queries from ``x``; keys and values from ``kv_input`` when given
+    (cross-attention), else from ``x``."""
     spec = policy.spec_for
     b, s, _ = x.shape
     q = mp_linear(params["wq"], x, spec(f"{path}/wq"),
                   path=f"{path}/wq").reshape(b, s, cfg.n_heads, cfg.head_dim)
-    k = mp_linear(params["wk"], x, spec(f"{path}/wk"),
-                  path=f"{path}/wk").reshape(b, s, cfg.n_kv_heads,
+    kv_src = x if kv_input is None else kv_input
+    bk, sk, _ = kv_src.shape
+    k = mp_linear(params["wk"], kv_src, spec(f"{path}/wk"),
+                  path=f"{path}/wk").reshape(bk, sk, cfg.n_kv_heads,
                                              cfg.head_dim)
-    v = mp_linear(params["wv"], x, spec(f"{path}/wv"),
-                  path=f"{path}/wv").reshape(b, s, cfg.n_kv_heads,
+    v = mp_linear(params["wv"], kv_src, spec(f"{path}/wv"),
+                  path=f"{path}/wv").reshape(bk, sk, cfg.n_kv_heads,
                                              cfg.head_dim)
     if cfg.qk_norm:
         q = rms_norm(q, params["q_norm"]["w"])
         k = rms_norm(k, params["k_norm"]["w"])
-    q = apply_rope(q, positions, cfg.rope_theta, cfg.rotary_pct)
-    k = apply_rope(k, positions, cfg.rope_theta, cfg.rotary_pct)
+    if not cfg.cross:
+        q = apply_rope(q, positions, cfg.rope_theta, cfg.rotary_pct)
+        k = apply_rope(k, positions, cfg.rope_theta, cfg.rotary_pct)
     return q, k, v
 
 
@@ -179,6 +187,26 @@ def _attend(cfg: AttnConfig, q, k, v, q_pos, k_pos, k_valid):
     if q.shape[1] > 1 and k.shape[1] > cfg.chunk_threshold:
         return _attend_chunked(cfg, q, k, v, q_pos, k_pos, k_valid)
     return _attend_dense(cfg, q, k, v, q_pos, k_pos, k_valid)
+
+
+def forward(params, cfg: AttnConfig, x, positions, policy, path,
+            kv_input=None, kv_valid=None):
+    """Attention over whole sequences, no cache: x (B, S, d), positions
+    (B, S). With ``kv_input`` (B, T, d), cross-attention onto it at key
+    positions ``0..T-1``; ``kv_valid`` (B, T_kv) masks keys (all valid
+    by default). Returns (B, S, d)."""
+    q, k, v = _project_qkv(params, cfg, x, positions, policy, path,
+                           kv_input)
+    k_pos = positions
+    if kv_input is not None:
+        k_pos = torch.arange(kv_input.shape[1], dtype=torch.int32,
+                             device=x.device)[None, :].expand(
+                                 kv_input.shape[:2])
+    if kv_valid is None:
+        kv_valid = torch.ones(k.shape[:2], dtype=torch.bool, device=x.device)
+    out = _attend(cfg, q, k, v, positions, k_pos, kv_valid)
+    return mp_linear(params["wo"], out, policy.spec_for(f"{path}/wo"),
+                     path=f"{path}/wo")
 
 
 def prefill(params, cfg: AttnConfig, x, positions, cache: KVCache, policy,

@@ -77,8 +77,9 @@ def norm_init(kind: str, d: int, device, dtype=torch.float32, lead=()):
 
 
 def activation(name: str):
+    """``"gelu"`` is the tanh form, as ``jax.nn.gelu``'s default is."""
     return {"silu": F.silu,
-            "gelu": lambda x: F.gelu(x),
+            "gelu": lambda x: F.gelu(x, approximate="tanh"),
             "gelu_tanh": lambda x: F.gelu(x, approximate="tanh"),
             "relu": F.relu}[name]
 

@@ -23,9 +23,8 @@ import dataclasses
 from typing import List, NamedTuple, Tuple
 
 import torch
-import torch.nn.functional as F
 
-from repro_torch.layers.common import dense_init
+from repro_torch.layers.common import activation, dense_init
 from repro_torch.layers.mplinear import linear_init, mp_linear
 
 _C = 8.0
@@ -166,8 +165,7 @@ def _block(params, x, state: RGLRUState, policy, path, recur):
                                 state.conv)
     a, b = _gates(params, xr)
     h, h_last = recur(a, b, state.h)
-    # jax.nn.gelu's default is the tanh form
-    out = h * F.gelu(gate.to(torch.float32), approximate="tanh")
+    out = h * activation("gelu")(gate.to(torch.float32))
     out = mp_linear(params["w_out"], out.to(x.dtype), sp(f"{path}/w_out"),
                     path=f"{path}/w_out")
     state.h.copy_(h_last)

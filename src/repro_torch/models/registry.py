@@ -1,13 +1,15 @@
 """Uniform model API across the served families (mirror of
-``repro/models/registry.py``): ``lm``, ``vlm``, ``rwkv`` and
-``griffin``; ``encdec`` is not ported.
+``repro/models/registry.py``): ``lm``, ``vlm``, ``rwkv``, ``griffin``
+and ``encdec``.
 
 ``build(cfg)`` -> :class:`ModelAPI` with ``init(seed, device)``,
 ``prefill``, ``decode_step``, ``prefill_chunk`` (``lm`` only; None
 elsewhere), ``init_cache(batch, max_len, device)`` and the ``prepare``
-hook; ``projection_paths`` maps parameter-tree containers to policy
-paths; ``projection_groups`` lists every family's precision-tuning units
-(the router's cost model reads them, ``encdec``'s too);
+hook; ``encdec``'s prefill also takes ``batch["frames"]`` and returns
+the decode state ``(caches, enc_out)`` its decode steps take;
+``projection_paths`` maps parameter-tree containers to policy paths;
+``projection_groups`` lists every family's precision-tuning units (the
+router's cost model reads them);
 ``make_block_decode`` builds the blocked decode program the engine
 dispatches once per block (``lm`` and ``vlm``).
 """
@@ -22,7 +24,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs import ModelConfig
-from repro_torch.models import griffin, lm, rwkv, vlm
+from repro_torch.models import encdec, griffin, lm, rwkv, vlm
 
 
 @dataclasses.dataclass(frozen=True)
@@ -182,26 +184,37 @@ def _griffin_projection_paths(cfg: ModelConfig
     return path_for
 
 
+def _encdec_projection_paths(cfg: ModelConfig
+                             ) -> Callable[[str], Optional[str]]:
+    def path_for(p: str) -> Optional[str]:
+        if p == "frontend_proj":
+            return "frontend_proj"
+        m = re.fullmatch(r"enc_blocks/(attn/w[qkvo]|mlp/w_(?:gate|up|down))",
+                         p)
+        if m:
+            return f"enc/{m.group(1)}"
+        m = re.fullmatch(r"dec_blocks/((?:attn|xattn)/w[qkvo]"
+                         r"|mlp/w_(?:gate|up|down))", p)
+        if m:
+            return f"dec/{m.group(1)}"
+        return None
+
+    return path_for
+
+
 _PROJECTION_PATHS = {
     "lm": _lm_projection_paths,
     "vlm": _vlm_projection_paths,
     "rwkv": _rwkv_projection_paths,
     "griffin": _griffin_projection_paths,
+    "encdec": _encdec_projection_paths,
 }
-
-
-def _not_ported(cfg: ModelConfig) -> NotImplementedError:
-    return NotImplementedError(
-        f"family {cfg.family!r} is not ported (the port serves "
-        f"{tuple(_PROJECTION_PATHS)}); encdec waits for a later slice")
 
 
 def projection_paths(cfg: ModelConfig) -> Callable[[str], Optional[str]]:
     """Container path -> policy path for every projection the policy
-    routes; None for everything else (embeddings, norms, the rwkv decay
-    LoRA and head, the RG-LRU gates)."""
-    if cfg.family not in _PROJECTION_PATHS:
-        raise _not_ported(cfg)
+    routes; None for everything else (embeddings, norms, untied heads,
+    the rwkv decay LoRA, the RG-LRU gates)."""
     return _PROJECTION_PATHS[cfg.family](cfg)
 
 
@@ -320,17 +333,20 @@ class ModelAPI(NamedTuple):
 
 # the families ``build`` serves, each by its module's init / prefill /
 # decode_step / init_cache
-_FAMILY_MODULES = {"lm": lm, "vlm": vlm, "rwkv": rwkv, "griffin": griffin}
+_FAMILY_MODULES = {"lm": lm, "vlm": vlm, "rwkv": rwkv, "griffin": griffin,
+                   "encdec": encdec}
 
 
 def build(cfg: ModelConfig) -> ModelAPI:
-    mod = _FAMILY_MODULES.get(cfg.family)
-    if mod is None:
-        raise _not_ported(cfg)
+    mod = _FAMILY_MODULES[cfg.family]
     if cfg.family == "vlm":
         def prefill(p, batch, caches):
             return vlm.prefill(p, cfg, batch["tokens"], caches,
                                batch["patches"])
+    elif cfg.family == "encdec":
+        def prefill(p, batch, caches):
+            return encdec.prefill(p, cfg, batch["tokens"], caches,
+                                  batch["frames"])
     else:
         def prefill(p, batch, caches):
             return mod.prefill(p, cfg, batch["tokens"], caches)
@@ -366,12 +382,16 @@ def calibration_batch(cfg: ModelConfig, batch: int, seq_len: int,
     """A prefill batch from a numpy seed — the port's counterpart of
     ``materialize_batch`` for calibration (the reference draws with
     jax.random, which torch cannot repeat): ``tokens`` (batch, seq_len)
-    int32 and, for vlm, ``patches`` (batch, n_patches, vit_dim) f32
-    standard normal."""
+    int32 and, for vlm, ``patches`` (batch, n_patches, vit_dim), for
+    encdec ``frames`` (batch, seq_len // 4, frontend_dim), both f32
+    standard normal (the reference's ``input_specs`` shapes)."""
     rng = np.random.default_rng(seed)
     out = {"tokens": rng.integers(0, min(cfg.vocab, 1000),
                                   (batch, seq_len), dtype=np.int32)}
     if cfg.family == "vlm":
         out["patches"] = rng.standard_normal(
             (batch, cfg.n_patches, cfg.vit_dim), dtype=np.float32)
+    if cfg.family == "encdec":
+        out["frames"] = rng.standard_normal(
+            (batch, seq_len // 4, cfg.frontend_dim), dtype=np.float32)
     return out

@@ -16,7 +16,7 @@ import torch
 from repro_torch.configs import ModelConfig
 from repro_torch.core.policy import get_policy
 from repro_torch.device import resolve_device
-from repro_torch.layers.common import apply_norm
+from repro_torch.layers.common import activation, apply_norm
 from repro_torch.layers.mplinear import linear_init, mp_linear
 from repro_torch.models import lm
 
@@ -43,9 +43,7 @@ def _project(params, cfg: ModelConfig, patches):
     x = patches.to(getattr(torch, cfg.compute_dtype))
     x = mp_linear(params["projector"]["fc1"], x,
                   policy.spec_for("projector/fc1"), path="projector/fc1")
-    # jax.nn.gelu's default is the tanh form
-    x = torch.nn.functional.gelu(x.to(torch.float32),
-                                 approximate="tanh").to(x.dtype)
+    x = activation("gelu")(x.to(torch.float32)).to(x.dtype)
     return mp_linear(params["projector"]["fc2"], x,
                      policy.spec_for("projector/fc2"), path="projector/fc2")
 

@@ -5,4 +5,5 @@ from repro_torch.obs.registry import (PERCENTILES, Counter,  # noqa: F401
                                       MetricsRegistry, RollingGauge,
                                       percentile_block)
 from repro_torch.obs.stats import ReplicaStats               # noqa: F401
-from repro_torch.obs.trace import Tracer, traced_call  # noqa: F401
+from repro_torch.obs.trace import (Tracer, traced_call,      # noqa: F401
+                                   validate_chrome_trace)

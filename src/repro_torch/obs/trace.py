@@ -33,6 +33,8 @@ from typing import Callable, Dict, List, Optional
 # phases share lane 0, request lifecycles get REQUEST_LANE_BASE + rid
 TICK_LANE = 0
 REQUEST_LANE_BASE = 1000
+# the trace-event phases a valid trace may hold
+_EVENT_PHASES = ("X", "B", "E", "i", "M", "C")
 
 class _NullSpan:
     """Shared no-op context manager returned by a disabled tracer."""
@@ -236,3 +238,37 @@ def traced_call(fn: Callable, name: str,
 
     wrapped.__wrapped__ = fn
     return wrapped
+
+
+def validate_chrome_trace(data) -> List[str]:
+    """Schema-check a Chrome trace-event object: a list of error strings,
+    empty when valid. Takes the ``{"traceEvents": [...]}`` object or a
+    bare event list; stops after about 20 errors."""
+    errors: List[str] = []
+    if isinstance(data, dict):
+        events = data.get("traceEvents")
+        if not isinstance(events, list):
+            return ["top-level object lacks a 'traceEvents' list"]
+    elif isinstance(data, list):
+        events = data
+    else:
+        return [f"trace must be an object or list, got {type(data).__name__}"]
+    for i, ev in enumerate(events):
+        if not isinstance(ev, dict):
+            errors.append(f"event {i}: not an object")
+            continue
+        for key in ("name", "ph", "ts", "pid", "tid"):
+            if key not in ev:
+                errors.append(f"event {i}: missing {key!r}")
+        ph = ev.get("ph")
+        if ph not in _EVENT_PHASES:
+            errors.append(f"event {i}: unknown phase {ph!r}")
+        if ph == "X" and not (isinstance(ev.get("dur"), (int, float))
+                              and ev["dur"] >= 0):
+            errors.append(f"event {i}: X event needs dur >= 0")
+        if not isinstance(ev.get("ts"), (int, float)):
+            errors.append(f"event {i}: ts must be a number")
+        if len(errors) > 20:
+            errors.append("... (truncated)")
+            break
+    return errors

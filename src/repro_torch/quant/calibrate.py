@@ -5,10 +5,11 @@
 ``layers.mplinear.collect_act_stats`` hook open and turns each
 projection's observed input absmax into a symmetric 8-bit scale keyed by
 its policy path. Eager torch records directly; the random calibration
-batches (tokens, and patches for vlm) come from numpy with the seed (the
-reference draws them with ``jax.random``, so parity tests pass explicit
-``prompts=`` to both). With ``prompts=`` no patches are passed, as in
-the reference, so a vlm's prefill raises KeyError there.
+batches (tokens, and patches for vlm or frames for encdec) come from
+numpy with the seed (the reference draws them with ``jax.random``, so
+parity tests pass explicit ``prompts=`` to both). With ``prompts=`` no
+patches or frames are passed, as in the reference, so a vlm's or an
+encdec's prefill raises KeyError there.
 """
 from __future__ import annotations
 

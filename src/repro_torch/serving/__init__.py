@@ -9,7 +9,7 @@ from repro_torch.serving.config import (EngineConfig,         # noqa: F401
                                         SamplingParams)
 from repro_torch.serving.engine import Request, ServingEngine  # noqa: F401
 from repro_torch.serving.metrics import (percentiles,         # noqa: F401
-                                         request_metrics,
+                                         request_metrics, slo_report,
                                          summarize_requests)
 from repro_torch.serving.router import (Replica, Router,     # noqa: F401
                                         build_replicas, replica_cost)

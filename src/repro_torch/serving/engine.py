@@ -120,6 +120,12 @@ class Request:
         return self.max_new_tokens
 
 
+# families whose decode state only a prefill makes (encdec: the KV caches
+# and the encoder output); the reference's engine fails on them at its
+# first decode, the port's refuses them at construction
+_UNSERVED_FAMILIES = ("encdec",)
+
+
 class ServingEngine:
     """Slot-based continuous batching with chunked or teacher-forced
     prefill admission."""
@@ -131,6 +137,11 @@ class ServingEngine:
                  device=None):
         from repro_torch.convert import tree_to
         from repro_torch.serving.scheduler import AdmissionScheduler
+        if cfg.family in _UNSERVED_FAMILIES:
+            raise ValueError(
+                f"family {cfg.family!r} cannot be served: its decode state "
+                f"(caches, encoder output) exists only after a prefill with "
+                f"frames; call registry.build(cfg).prefill/decode_step")
         self.device = resolve_device(device)
         self.config = config if config is not None else EngineConfig()
         self.cfg = cfg

@@ -19,6 +19,10 @@ plus ``mean``/``max``; ``{}`` when no request carries the timestamps —
 e.g. nothing completed yet). ``PERCENTILES`` and the block function are
 re-exported here for backward compatibility.
 
+``slo_report`` layers the serving-quality view on top: SLO attainment
+(the share of requests whose TTFT meets a deadline) and goodput (the
+generated tokens of attaining requests per second).
+
 """
 from __future__ import annotations
 
@@ -28,7 +32,7 @@ from repro_torch.obs.registry import PERCENTILES, percentile_block
 from repro_torch.serving.engine import Request
 
 __all__ = ["PERCENTILES", "percentiles", "request_metrics",
-           "summarize_requests"]
+           "summarize_requests", "slo_report"]
 
 
 def percentiles(values: Sequence[float],
@@ -67,4 +71,35 @@ def summarize_requests(reqs: Iterable[Request]) -> Dict:
         "e2e_s": percentiles([r["e2e_s"] for r in rows]),
         "tok_per_s_per_request": percentiles(
             [r["tok_per_s"] for r in rows]),
+    }
+
+
+def slo_report(reqs: Iterable[Request], ttft_slo_s: float) -> Dict:
+    """SLO attainment and goodput over a set of requests.
+
+    A request attains when its TTFT (submit -> first token) is at most
+    ``ttft_slo_s``; requests that never produced a token are left out of
+    the denominator. Goodput counts the generated tokens of attaining
+    requests over the span from the earliest submit to the latest
+    finish, or, while nothing has finished, to the latest first token
+    (a partial rate over the tokens so far). ``completed`` counts the
+    requests that finished."""
+    rows = [r for r in reqs if r.first_token_time is not None]
+    if not rows:
+        return {"n": 0, "completed": 0, "ttft_slo_s": float(ttft_slo_s),
+                "attainment": None, "goodput_tok_per_s": None}
+    attain = [r for r in rows
+              if (r.first_token_time - r.submit_time) <= ttft_slo_s]
+    finished = [r.finish_time for r in rows if r.finish_time is not None]
+    t0 = min(r.submit_time for r in rows)
+    t1 = max(finished) if finished \
+        else max(r.first_token_time for r in rows)
+    span = max(t1 - t0, 1e-9)
+    good = sum(len(r.tokens) - len(r.prompt) for r in attain)
+    return {
+        "n": len(rows),
+        "completed": len(finished),
+        "ttft_slo_s": float(ttft_slo_s),
+        "attainment": len(attain) / len(rows),
+        "goodput_tok_per_s": good / span,
     }

@@ -16,7 +16,8 @@ optional ``<arch>`` sets ``ARCH`` (qwen2-0.5b by default) for the task:
 ``arch`` computes everything ``tests/test_torch_archs.py`` compares for
 one architecture in one process, and ``family`` everything
 ``tests/test_torch_families.py`` compares for one of the vlm, rwkv and
-griffin architectures.
+griffin architectures, and ``encdec`` what ``tests/test_torch_encdec.py``
+compares for seamless-m4t-medium.
 """
 import dataclasses
 import os
@@ -486,13 +487,16 @@ FAMILY_DECODE_STEPS = 3
 
 def calib_batch(cfg, batch, seq_len, seed):
     """The port's ``registry.calibration_batch`` in numpy: random tokens
-    and, for vlm, standard-normal patches."""
+    and, for vlm, standard-normal patches, for encdec frames."""
     rng = np.random.default_rng(seed)
     out = {"tokens": rng.integers(0, min(cfg.vocab, 1000),
                                   (batch, seq_len), dtype=np.int32)}
     if cfg.family == "vlm":
         out["patches"] = rng.standard_normal(
             (batch, cfg.n_patches, cfg.vit_dim), dtype=np.float32)
+    if cfg.family == "encdec":
+        out["frames"] = rng.standard_normal(
+            (batch, seq_len // 4, cfg.frontend_dim), dtype=np.float32)
     return out
 
 
@@ -598,10 +602,78 @@ def task_family():
     return out
 
 
+ENCDEC_ARCH = "seamless-m4t-medium"
+ENCDEC_DECODE_STEPS = 4
+
+
+def encdec_inputs(cfg):
+    """The prefill batch of the encdec cases: 12 tokens behind 8 frames
+    a row."""
+    rng = np.random.default_rng(5)
+    return {"tokens": rng.integers(0, 512, (2, 12)).astype(np.int32),
+            "frames": rng.standard_normal(
+                (2, 8, cfg.frontend_dim)).astype(np.float32)}
+
+
+def task_encdec():
+    """Reduced seamless-m4t-medium under ``FAMILY_POLICIES``: scales
+    calibrated on ``calib_batch`` (jitted and op by op); per policy and
+    executor variant, ``encode``'s output, prefill logits and decode
+    state ``(caches, enc_out)``, then greedy decode steps from that
+    state (logits, tokens, final state)."""
+    import jax
+    import jax.numpy as jnp
+
+    from repro.configs import reduced
+    from repro.core.policy import get_policy
+    from repro.layers.mplinear import executor_variant
+    from repro.models import encdec, registry
+
+    os.environ["REPRO_FUSED_BACKEND"] = "xla"
+    base = reduced(ENCDEC_ARCH)
+    params = registry.build(base).init(jax.random.PRNGKey(0))
+    out = {"params": _np_tree(params), "cases": {}, "scales": {},
+           "eager_scales": {}}
+    inp = encdec_inputs(base)
+    batch = {k: jnp.asarray(v) for k, v in inp.items()}
+    for pol in FAMILY_POLICIES:
+        cfg = dataclasses.replace(base, precision_policy=pol)
+        api = registry.build(cfg)
+        scales = None
+        if pol in CALIBRATED:
+            scales = batch_scales(cfg, api, params)
+            with jax.disable_jit():
+                out["eager_scales"][pol] = batch_scales(cfg, api, params)
+        out["scales"][pol] = scales
+        prepared = api.prepare(params, get_policy(pol), act_scales=scales)
+        for variant in (None, "fused"):
+            with executor_variant(variant):
+                enc = encdec.encode(prepared, cfg, batch["frames"])
+                logits, state = api.prefill(prepared, batch,
+                                            api.init_cache(2, 16))
+                prefill_state = _np_tree(state)
+                tok = jnp.argmax(logits, -1).astype(jnp.int32)[:, None]
+                pos = jnp.full((2,), 12, jnp.int32)
+                steps, tokens = [], []
+                for _ in range(ENCDEC_DECODE_STEPS):
+                    lg, state = api.decode_step(
+                        prepared, {"token": tok, "pos": pos}, state)
+                    steps.append(np.asarray(lg))
+                    tok = jnp.argmax(lg, -1).astype(jnp.int32)[:, None]
+                    tokens.append(np.asarray(tok[:, 0]))
+                    pos = pos + 1
+            out["cases"][(pol, variant)] = {
+                "encode": np.asarray(enc),
+                "prefill_logits": np.asarray(logits),
+                "prefill_state": prefill_state, "decode_logits": steps,
+                "decode_tokens": tokens, "decode_state": _np_tree(state)}
+    return out
+
+
 TASKS = {"lm": task_lm, "serving": task_serving, "plan": task_plan,
          "checkpoint": task_checkpoint, "router": task_router,
          "arch": task_arch, "rebuild": task_rebuild,
-         "family": task_family}
+         "family": task_family, "encdec": task_encdec}
 
 
 if __name__ == "__main__":

@@ -134,6 +134,50 @@ def run_references(task: str, archs, env_extra=None, timeout: float = 600):
 
 
 BF16_RTOL = 2.0 ** -7
+# f32 recurrent states (the wkv ``s``, the RG-LRU ``h``): relative to
+# each leaf's largest magnitude
+F32_STATE_RTOL = 1e-5
+
+
+def flat(tree, prefix=""):
+    """{path: leaf} of dicts, lists and (named) tuples."""
+    if isinstance(tree, dict):
+        items = tree.items()
+    elif isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        items = zip(tree._fields, tree)
+    elif isinstance(tree, (list, tuple)):
+        items = enumerate(tree)
+    else:
+        return {prefix: tree}
+    out = {}
+    for k, v in items:
+        out.update(flat(v, f"{prefix}/{k}" if prefix else str(k)))
+    return out
+
+
+def assert_state(got, want, what):
+    """Port decode state (torch) against the reference's (numpy): the
+    same leaves, position tags exact, bf16 leaves within one bf16 ulp,
+    f32 leaves within ``F32_STATE_RTOL`` of the leaf's largest
+    magnitude."""
+    got, want = flat(got), flat(want)
+    assert got.keys() == want.keys(), what
+    for path, t in got.items():
+        a = to_numpy(t)
+        b = np.asarray(want[path])
+        assert a.shape == b.shape, (what, path)
+        if not np.issubdtype(b.dtype, np.floating) and b.dtype.name != \
+                "bfloat16":
+            np.testing.assert_array_equal(a, b, err_msg=f"{what} {path}")
+        elif t.dtype == torch.bfloat16:
+            np.testing.assert_allclose(a, np.asarray(b, np.float32),
+                                       rtol=BF16_RTOL, atol=1e-6,
+                                       err_msg=f"{what} {path}")
+        else:
+            scale = max(float(np.abs(b).max()), 1e-30)
+            np.testing.assert_allclose(a, b, rtol=0,
+                                       atol=F32_STATE_RTOL * scale,
+                                       err_msg=f"{what} {path}")
 
 
 def assert_caches(got, want, what, rtol=BF16_RTOL):

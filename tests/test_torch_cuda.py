@@ -1320,3 +1320,160 @@ def test_family_engine_on_the_card_matches_the_cpu(cuda, arch):
                              tok, pos)
     lp, _ = cpu._decode(cpu.params, cpu.caches, tok, pos)
     assert _rel_rms(lc.cpu(), lp) <= 1e-2
+
+
+# ------------------------------------------------ encdec and the smoke
+
+def _encdec_prepared(policy, device, cpu_params):
+    """Reduced seamless-m4t-medium under ``policy``: calibrated on the
+    CPU (random path, with frames), prepared, on ``device``."""
+    from repro_torch.convert import tree_to
+    from repro_torch.core.policy import get_policy
+    from repro_torch.quant.calibrate import calibrate_act_scales
+    cfg = dataclasses.replace(reduced("seamless-m4t-medium"),
+                              precision_policy=policy)
+    api = registry.build(cfg)
+    scales = calibrate_act_scales(cfg, api, cpu_params, device="cpu")
+    tree = api.prepare(cpu_params, get_policy(policy), act_scales=scales)
+    return cfg, api, tree_to(tree, device)
+
+
+def _encdec_batch(cfg, device):
+    rng = np.random.default_rng(6)
+    return {"tokens": torch.from_numpy(rng.integers(
+                0, cfg.vocab, (2, 12), dtype=np.int32)).to(device),
+            "frames": torch.from_numpy(rng.standard_normal(
+                (2, 8, cfg.frontend_dim), dtype=np.float32)).to(device)}
+
+
+# card against CPU for a whole model (chip_smoke.py's phase 5 gates): the
+# two sum in different orders, so an int8 act code at a rounding boundary
+# can flip and move everything downstream by a step; a wrong kernel,
+# scale or layout moves the logits by their whole range
+WHOLE_MODEL_MAX_OF_RANGE = 0.10
+WHOLE_MODEL_REL_RMS = 0.15
+
+
+def _whole_model_close(a, b):
+    a, b = a.double(), b.double()
+    return (_rel_rms(a, b) <= WHOLE_MODEL_REL_RMS
+            and float((a - b).abs().max())
+            <= WHOLE_MODEL_MAX_OF_RANGE * float(b.max() - b.min()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("policy", ["int4_serving", "int8_serving"])
+def test_encdec_on_the_card_matches_the_cpu_reduced(cuda, policy):
+    """Reduced encdec, fused: one prefill launches ``fused_dequant_mm``
+    once per projection (1 + 2 x 7 + 2 x 11 = 37) and a decode step once
+    per decoder projection (2 x 11 = 22), nothing else. The first
+    encoder block, from the same input, agrees with the CPU within 1e-2
+    relative RMS (phase 5's first-layer tolerance); prefill logits, the
+    encoder output and three decode steps fed the CPU's greedy tokens
+    within the whole-model gates."""
+    from repro_torch.convert import tree_to
+    from repro_torch.core.policy import get_policy
+    from repro_torch.layers.mplinear import executor_variant
+    from repro_torch.models import encdec
+    from repro_torch.models.lm import layer_tree
+    from repro_torch.serving import graphs
+    cpu_params = registry.init_params(reduced("seamless-m4t-medium"),
+                                      seed=0, device="cpu")
+    cfg, api, card = _encdec_prepared(policy, cuda, cpu_params)
+    cpu = tree_to(card, "cpu")
+    x = torch.randn((2, 8, cfg.d_model),
+                    generator=torch.Generator().manual_seed(3)).bfloat16()
+    blocks = []
+    for tree, dev in ((card, cuda), (cpu, "cpu")):
+        with torch.no_grad(), executor_variant("fused"):
+            blocks.append(encdec.encode_block(
+                layer_tree(tree["enc_blocks"], 0), cfg, x.to(dev),
+                torch.arange(8, device=dev)[None].expand(2, 8),
+                get_policy(policy)).cpu())
+    assert _rel_rms(*blocks) <= 1e-2
+    out, tokens = {}, None
+    for where, tree, dev in (("cpu", cpu, "cpu"), ("card", card, cuda)):
+        batch = _encdec_batch(cfg, dev)
+        before = tops.launch_counts()
+        with torch.no_grad(), executor_variant("fused"):
+            logits, state = api.prefill(tree, batch,
+                                        api.init_cache(2, 16, dev))
+            torch.cuda.synchronize()
+            prefill = graphs.count_delta(before, tops.launch_counts())
+            enc_out = state[1].cpu()
+            pos = torch.full((2,), 12, dtype=torch.int32, device=dev)
+            steps, launches = [], []
+            for i in range(3):
+                tok = (logits.argmax(-1) if tokens is None
+                       else tokens[i].to(dev)).to(torch.int32)[:, None]
+                before = tops.launch_counts()
+                logits, state = api.decode_step(
+                    tree, {"token": tok, "pos": pos}, state)
+                torch.cuda.synchronize()
+                launches.append(graphs.count_delta(before,
+                                                   tops.launch_counts()))
+                steps.append((tok.cpu()[:, 0], logits.cpu()))
+                pos = pos + 1
+        if tokens is None:
+            tokens = [t for t, _ in steps]
+        out[where] = (enc_out, steps, prefill, launches)
+    (ec, dc, pc, nc), (ep, dp, pp, np_) = out["card"], out["cpu"]
+    assert pc == {"fused_dequant_mm": 37}
+    assert nc == [{"fused_dequant_mm": 22}] * 3
+    assert pp == {} and np_ == [{}] * 3
+    assert _whole_model_close(ec.float(), ep.float())
+    real = slice(0, cfg.vocab)
+    for (ta, a), (tb, b) in zip(dc, dp):
+        assert torch.equal(ta, tb)
+        assert _whole_model_close(a[:, real], b[:, real])
+
+
+@pytest.mark.cuda
+def test_encdec_decode_replays_bit_identical_to_eager(cuda):
+    """A reduced encdec decode step through the program cache (captured
+    once, then replayed) gives logits and a state bit-identical to the
+    same steps run eagerly on a copy of the state, in the tensors it was
+    captured with."""
+    from repro_torch.layers.mplinear import executor_variant
+    from repro_torch.serving import graphs
+    cpu_params = registry.init_params(reduced("seamless-m4t-medium"),
+                                      seed=0, device="cpu")
+    cfg, api, tree = _encdec_prepared("int4_serving", cuda, cpu_params)
+    with torch.no_grad(), executor_variant("fused"):
+        _, state = api.prefill(tree, _encdec_batch(cfg, cuda),
+                               api.init_cache(2, 16, cuda))
+    eager = graphs.clone_tree(state)
+    ptrs = [t.data_ptr() for _, t in graphs.leaves(state)]
+
+    def step(t, st, tok, pos):
+        with torch.no_grad(), executor_variant("fused"):
+            return api.decode_step(t, {"token": tok, "pos": pos}, st)
+    programs = graphs.Programs(cuda)
+    program = programs.program(step, 2, "decode_step")
+    pos = np.full(2, 12, np.int32)
+    for i, tok in enumerate(([[3], [5]], [[7], [11]], [[2], [9]])):
+        tok = np.asarray(tok, np.int32)
+        got, _ = program(tree, state, tok, pos + i)
+        want, eager = step(tree, eager, torch.from_numpy(tok).to(cuda),
+                           torch.from_numpy(pos + i).to(cuda))
+        assert graphs.same_bits(got, want), i
+        assert [t.data_ptr() for _, t in graphs.leaves(state)] == ptrs
+        for (p, a), (_, b) in zip(graphs.leaves(state),
+                                  graphs.leaves(eager)):
+            assert graphs.same_bits(a, b), (i, p)
+    assert programs.stats()["captures"] == 1
+    assert programs.stats()["replays"] == 2
+
+
+@pytest.mark.cuda
+def test_serving_smoke_on_the_card(cuda, tmp_path):
+    """``python -m repro_torch.serving smoke --trace PATH`` on the card
+    (its default device): exit 0, every contract held, a valid trace."""
+    import json
+
+    from repro_torch.obs import validate_chrome_trace
+    from repro_torch.serving.__main__ import main
+    path = str(tmp_path / "trace.json")
+    assert main(["smoke", "--trace", path]) == 0
+    with open(path) as f:
+        assert validate_chrome_trace(json.load(f)) == []

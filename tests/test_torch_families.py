@@ -72,12 +72,11 @@ from _jax_reference import (FAMILY_ARCHS, FAMILY_BLOCKS, FAMILY_POLICIES,
                             STOPS, TRACE, calib_batch, calib_prompts,
                             drive_trace, family_inputs)
 from _torch_parity import one_intra_op_thread  # noqa: F401 (autouse)
-from _torch_parity import BF16_RTOL, references
+from _torch_parity import assert_state, flat, references
 
 LOGIT_ATOL = 1e-5
 VLM_PREFILL_LOGIT_ATOL = 5e-2
 GRIFFIN_TIE_ATOL = 0.15
-F32_STATE_RTOL = 1e-5
 VARIANTS = (None, "fused")
 SERVED = [(a, b) for a in FAMILY_ARCHS for b in FAMILY_BLOCKS[a]]
 
@@ -93,46 +92,6 @@ def _cfg(arch, policy="bf16"):
     return dataclasses.replace(reduced(arch), precision_policy=policy)
 
 
-def _flat(tree, prefix=""):
-    """{path: leaf} of dicts, lists and (named) tuples."""
-    if isinstance(tree, dict):
-        items = tree.items()
-    elif isinstance(tree, tuple) and hasattr(tree, "_fields"):
-        items = zip(tree._fields, tree)
-    elif isinstance(tree, (list, tuple)):
-        items = enumerate(tree)
-    else:
-        return {prefix: tree}
-    out = {}
-    for k, v in items:
-        out.update(_flat(v, f"{prefix}/{k}" if prefix else str(k)))
-    return out
-
-
-def assert_state(got, want, what):
-    """Port state (torch) against the reference's (numpy): position tags
-    exact, bf16 leaves within one bf16 ulp, f32 leaves within
-    ``F32_STATE_RTOL`` of the leaf's largest magnitude."""
-    got, want = _flat(got), _flat(want)
-    assert got.keys() == want.keys(), what
-    for path, t in got.items():
-        a = to_numpy(t)
-        b = np.asarray(want[path])
-        assert a.shape == b.shape, (what, path)
-        if not np.issubdtype(b.dtype, np.floating) and b.dtype.name != \
-                "bfloat16":
-            np.testing.assert_array_equal(a, b, err_msg=f"{what} {path}")
-        elif t.dtype == torch.bfloat16:
-            np.testing.assert_allclose(a, np.asarray(b, np.float32),
-                                       rtol=BF16_RTOL, atol=1e-6,
-                                       err_msg=f"{what} {path}")
-        else:
-            scale = max(float(np.abs(b).max()), 1e-30)
-            np.testing.assert_allclose(a, b, rtol=0,
-                                       atol=F32_STATE_RTOL * scale,
-                                       err_msg=f"{what} {path}")
-
-
 @pytest.mark.parametrize("arch", FAMILY_ARCHS)
 def test_config_equals_the_reference(arch):
     assert dataclasses.asdict(get_config(arch)) == dataclasses.asdict(
@@ -146,9 +105,9 @@ def test_init_keeps_the_reference_tree(refs, arch):
     """``registry.init_params`` builds the reference's tree: the same
     paths (griffin's ``tail`` list included), shapes and dtypes."""
     out, _ = refs[arch]
-    mine = _flat(to_numpy(registry.init_params(reduced(arch), seed=1,
+    mine = flat(to_numpy(registry.init_params(reduced(arch), seed=1,
                                                device="cpu")))
-    theirs = _flat(out["params"])
+    theirs = flat(out["params"])
     assert mine.keys() == theirs.keys()
     for k, v in theirs.items():
         assert (mine[k].shape, mine[k].dtype) == (v.shape, v.dtype), k
@@ -163,11 +122,11 @@ def test_init_cache_keeps_the_reference_state(refs, arch):
     api = registry.build(reduced(arch))
     state = api.init_cache(2, 16, "cpu")
     want = out["cases"][("bf16", None)]["prefill_state"]
-    got = _flat(state)
-    assert got.keys() == _flat(want).keys()
+    got = flat(state)
+    assert got.keys() == flat(want).keys()
     for path, t in got.items():
         assert 0 not in t.stride(), path
-        assert t.shape == np.asarray(_flat(want)[path]).shape, path
+        assert t.shape == np.asarray(flat(want)[path]).shape, path
         fill = -1 if path.endswith("pos") else 0
         assert bool((t == fill).all()), path
     ptrs = [t.data_ptr() for t in got.values()]
@@ -211,7 +170,7 @@ def test_decode_matches_reference(refs, arch, policy, variant):
     case = refs[arch][0]["cases"][(policy, variant)]
     api, prepared = _prepared(refs, arch, policy)
     state = params_from_numpy(case["prefill_state"], device="cpu")
-    leaves = [t.data_ptr() for t in _flat(state).values()]
+    leaves = [t.data_ptr() for t in flat(state).values()]
     tok = torch.from_numpy(np.argmax(case["prefill_logits"], -1)
                            .astype(np.int32)[:, None])
     pos = torch.full((2,), 12 + (reduced(arch).n_patches or 0),
@@ -220,7 +179,7 @@ def test_decode_matches_reference(refs, arch, policy, variant):
         for want in case["decode_logits"]:
             logits, out = api.decode_step(prepared,
                                           {"token": tok, "pos": pos}, state)
-            assert [t.data_ptr() for t in _flat(out).values()] == leaves
+            assert [t.data_ptr() for t in flat(out).values()] == leaves
             np.testing.assert_allclose(logits.numpy(), want, rtol=0,
                                        atol=LOGIT_ATOL)
             tok = torch.from_numpy(

@@ -10,8 +10,9 @@ fallback, and no compiler needed to import it.
 * Entry points default to CUDA: without a CUDA device and without an
   explicit ``device="cpu"`` they raise (the engine, ``init_params``,
   calibration, ``build_engine``, ``build_replicas`` and
-  ``restore_checkpoint``), for every served family; ``encdec`` is not
-  ported and raises.
+  ``restore_checkpoint``), for every served family. Every architecture
+  of the reference's zoo builds, and its parameter tree resolves to
+  policy paths that its projection groups cover.
 * Without ``nvcc`` the kernel loader raises a clear error; it never
   hands back a plain version.
 """
@@ -25,7 +26,7 @@ import torch
 
 from repro_torch import device as tdevice
 from repro_torch.checkpoint import restore_checkpoint
-from repro_torch.configs import reduced
+from repro_torch.configs import get_config, reduced
 from repro_torch.fabric import build_engine, save_engine_checkpoint
 from repro_torch.kernels import _build
 from repro_torch.kernels import ops as tops
@@ -33,6 +34,8 @@ from repro_torch.models import registry
 from repro_torch.quant.calibrate import calibrate_act_scales
 from repro_torch.serving.engine import ServingEngine
 from repro_torch.serving.router import build_replicas
+
+from _torch_parity import ARCHS
 
 PKG = pathlib.Path(__file__).resolve().parents[1] / "src" / "repro_torch"
 
@@ -136,13 +139,15 @@ def test_serving_surface_modules_stand_alone():
 
 
 FAMILY_MODULES = ("repro_torch.layers.rwkv6", "repro_torch.layers.rglru",
-                   "repro_torch.models.vlm", "repro_torch.models.rwkv",
-                   "repro_torch.models.griffin")
+                  "repro_torch.models.vlm", "repro_torch.models.rwkv",
+                  "repro_torch.models.griffin", "repro_torch.models.encdec",
+                  "repro_torch.serving.smoke", "repro_torch.serving.__main__")
 
 
 def test_family_modules_stand_alone():
-    """The vlm, rwkv and griffin modules, each imported first in a fresh
-    interpreter, as above."""
+    """The vlm, rwkv, griffin and encdec modules and the serving smoke
+    and its command line, each imported first in a fresh interpreter, as
+    above."""
     _imports_alone(FAMILY_MODULES)
 
 
@@ -250,10 +255,22 @@ def test_family_entry_points_raise_without_cuda_unless_asked_for_cpu(
     assert eng.device == torch.device("cpu")
 
 
-def test_encdec_is_not_ported():
-    import dataclasses
-    cfg = dataclasses.replace(reduced("qwen2-0.5b"), family="encdec")
-    with pytest.raises(NotImplementedError, match="encdec"):
-        registry.build(cfg)
-    with pytest.raises(NotImplementedError, match="encdec"):
-        registry.projection_paths(cfg)
+@pytest.mark.parametrize("arch", ARCHS)
+def test_every_arch_builds_and_resolves_its_projection_paths(arch):
+    """``build`` takes the full config of every architecture, and every
+    projection of the reduced model's parameter tree resolves to a
+    policy path that one of the architecture's projection groups
+    matches (a path no group matches would make a plan's rule dead)."""
+    import re
+
+    from repro_torch.quant.prepare import iter_projection_weights
+    api = registry.build(get_config(arch))
+    assert api.cfg.arch_id == arch and callable(api.prefill)
+    cfg = reduced(arch)
+    paths = registry.projection_paths(cfg)
+    params = registry.init_params(cfg, device="cpu")
+    resolved = {paths(p) for p, _ in iter_projection_weights(params, paths)}
+    assert resolved and None not in resolved
+    groups = registry.projection_groups(cfg)
+    for path in resolved:
+        assert any(re.search(g.pattern, path) for g in groups), path
