@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--report PATH] [--profile]
 
-Drives the port (``src/repro_torch``) on the card, in fourteen phases,
+Drives the port (``src/repro_torch``) on the card, in fifteen phases,
 each printing one line that starts with ``phase``:
 
 1. device and build: the card's name and power limit (nvidia-smi), and
@@ -149,6 +149,23 @@ each printing one line that starts with ``phase``:
    reference's defaults and ``--trace``) on the card: exit 0, every
    contract of the reference's smoke, and a trace
    ``validate_chrome_trace`` finds no fault in; its contract numbers.
+15. the paper's studies and the examples on the card: Fig. 3's whole
+   grid (48 cells of 400 x 64 f16 inner products, no cache) through
+   ``repro_torch.core.ipu`` on the card and on the CPU, its rows equal
+   (``json.dumps(sort_keys=True)``) and its five claims true, the
+   seconds on each device; every cell's 400 raw accumulators (``hi``,
+   ``lo``, exponent) on the card equal to the CPU's, since the rows are
+   medians; for each cell, the diagonal of ``mp_matmul``
+   over the cell's operands bit-equal to ``fp16_inner_product`` on the
+   card (48 launches); ``repro_torch.exp.smoke`` (cold, warm and
+   ``--jobs 2``); ``repro_torch.examples.quickstart`` printing the same
+   text on the card as with ``--device cpu``; ``serve_lm`` serving
+   full-width qwen2-0.5b (weights from seed 0) under ``int4_serving``
+   calibrated at decode_block 4 (``fused_dequant_mm`` the only kernel
+   launched), from ``results/plans/qwen2_0_5b.json``, and as a router
+   over ``int8_serving`` and that plan, every request completing its
+   ``max_new`` tokens; tok/s, TTFT and launches per route; and
+   ``repro_torch.tools.trace_report`` over phase 14's trace, exit 0.
 
 Phases 8-13 assert that f32 matmuls do not run on TF32 (a TF32
 router moves expert selection); each phase frees its model before the
@@ -172,6 +189,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -3181,24 +3199,21 @@ def _encdec_leaves(tree):
 
 # ------------------------------------------------------------- phase 14
 
-def phase_serving_smoke(smi):
+def phase_serving_smoke(smi, path):
     """``repro_torch.serving.smoke.main`` with the reference's defaults
-    and ``--trace``, on the card: exit 0, and a trace in which
+    and ``--trace path``, on the card: exit 0, and a trace in which
     ``validate_chrome_trace`` finds no fault."""
-    import tempfile
     from repro_torch.kernels import ops
     from repro_torch.obs import validate_chrome_trace
     from repro_torch.serving import smoke
     t_phase = time.perf_counter()
     summary = {}
     ops.reset_launch_counts()
-    with tempfile.TemporaryDirectory() as d:
-        path = os.path.join(d, "serving_smoke_trace.json")
-        rc = smoke.main(["--trace", path], summary=summary)
-        torch.cuda.synchronize()
-        launches = ops.launch_counts()
-        with open(path) as f:
-            errors = validate_chrome_trace(json.load(f))
+    rc = smoke.main(["--trace", path], summary=summary)
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    with open(path) as f:
+        errors = validate_chrome_trace(json.load(f))
     if rc != 0 or errors:
         raise AssertionError(f"serving smoke: exit {rc}, trace faults "
                              f"{errors[:5]}")
@@ -3209,6 +3224,181 @@ def phase_serving_smoke(smi):
         launches=launches, contract=summary,
         phase_s=time.perf_counter() - t_phase)
     return launches
+
+
+# ------------------------------------------------------------- phase 15
+
+# serve_lm's three routes: the reference's command lines, at full width
+SERVE_LM_ROUTES = (
+    ("int4_serving", ("--policy", "int4_serving", "--calibrate",
+                      "--decode-block", "4")),
+    ("plan", ("--plan", PLAN_FILE)),
+    ("router", ("--replicas", f"int8_serving,plan:{PLAN_FILE}")),
+)
+
+
+def _fig3_sweep(device):
+    """Fig. 3's whole grid on ``device``, no cache: (results, seconds)."""
+    from repro_torch import exp
+    from repro_torch.studies import fig3_error
+    t0 = time.perf_counter()
+    results = fig3_error.run(verbose=False, engine=exp.EngineConfig(
+        cache=None, device=device))
+    return results, time.perf_counter() - t0
+
+
+def _fig3_raw_accumulators():
+    """For every Fig. 3 cell, the 400 raw accumulators of
+    ``core.ipu.fp16_inner_product_raw`` (``hi``, ``lo`` and exponent)
+    on the card equal to the CPU's, integer for integer: the rows are
+    medians, which a few flipped accumulators would leave unchanged.
+    Returns the cells compared."""
+    from repro_torch.core.ipu import fp16_inner_product_raw
+    from repro_torch.studies import fig3_error
+    points = fig3_error.spec().points()
+    for p in points:
+        kw = p.kwargs
+        a, b = fig3_error.operands(kw["dist"], kw["length"], kw["samples"],
+                                   kw["seed"])
+        cfg = fig3_error.ipu_config(kw["accum"], kw["w"], kw["n"])
+        got = {}
+        for dev in ("cuda", "cpu"):
+            acc, e = fp16_inner_product_raw(torch.as_tensor(a, device=dev),
+                                            torch.as_tensor(b, device=dev),
+                                            cfg)
+            got[dev] = [t.cpu() for t in (acc.hi, acc.lo, e)]
+        if not all(torch.equal(x, y) for x, y in zip(got["cuda"],
+                                                      got["cpu"])):
+            raise AssertionError(f"fig3 raw accumulators on the card != "
+                                 f"the CPU's at {p.label()}")
+    return len(points)
+
+
+def _fig3_mp_matmul():
+    """For every Fig. 3 cell, the diagonal of ``mp_matmul(a, b.T)`` on
+    the card bit-equal to ``core.ipu.fp16_inner_product(a, b)`` on the
+    card, at the cell's IPU configuration. Returns the launches."""
+    from repro_torch.core.ipu import fp16_inner_product
+    from repro_torch.kernels import ops
+    from repro_torch.studies import fig3_error
+    points = fig3_error.spec().points()
+    operands = {}
+    for p in points:
+        kw = p.kwargs
+        key = (kw["dist"], kw["length"], kw["samples"], kw["seed"])
+        if key not in operands:
+            operands[key] = [torch.as_tensor(x, device="cuda")
+                             for x in fig3_error.operands(*key)]
+    ops.reset_launch_counts()
+    for p in points:
+        kw = p.kwargs
+        a, b = operands[(kw["dist"], kw["length"], kw["samples"],
+                         kw["seed"])]
+        cfg = fig3_error.ipu_config(kw["accum"], kw["w"], kw["n"])
+        diag = torch.diagonal(ops.mp_matmul(a, b.T.contiguous(), cfg))
+        want = fp16_inner_product(a, b, cfg)
+        if not torch.equal(_as_bits(diag.contiguous()), _as_bits(want)):
+            raise AssertionError(f"mp_matmul diagonal != fp16_inner_product "
+                                 f"at {p.label()}")
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    if launches["mp_matmul"] != len(points):
+        raise AssertionError(f"{launches['mp_matmul']} mp_matmul launches "
+                             f"for {len(points)} cells")
+    return launches
+
+
+def _stdout_of(fn, *args):
+    import contextlib
+    import io
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = fn(*args)
+    return rc, buf.getvalue()
+
+
+def _serve_lm(route, argv):
+    """One serve_lm route at full width: its summary and launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.examples import serve_lm
+    from repro_torch.kernels import ops
+    args = serve_lm.parse_args(list(argv) + ["--device", "cuda"])
+    cfg = get_config("qwen2-0.5b")
+    ops.reset_launch_counts()
+    run = (serve_lm.run_router if args.replicas
+           else serve_lm.run_single)(args, cfg)
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    _free()
+    want = {rid: args.max_new for rid in range(args.requests)}
+    if run["new_tokens"] != want:
+        raise AssertionError(f"serve_lm {route}: new tokens "
+                             f"{run['new_tokens']} != {want}")
+    # the plan and router routes run without --calibrate, as the
+    # reference's command lines do: their int routes take staged
+    # operands (plain products), so they may launch no kernel at all
+    launched = {k: n for k, n in launches.items() if n}
+    if route == "int4_serving" and (
+            set(launched) != {"fused_dequant_mm"}):
+        raise AssertionError(f"serve_lm int4_serving launched {launched}")
+    metrics = ([run["metrics"]] if not args.replicas
+               else list(run["metrics"].values()))
+    ttft = {k: [m["ttft_s"].get(k) for m in metrics] for k in ("p50",
+                                                              "max")}
+    return {"tok_s": run["tok_s"], "wall_s": run["wall_s"],
+            "ticks": run["ticks"], "ttft_p50_s": ttft["p50"],
+            "ttft_max_s": ttft["max"], "launches": launched}, launches
+
+
+def phase_studies(smi, trace_path):
+    """The paper's studies, the sweep engine, the examples and the trace
+    report on the card (see the module docstring, phase 15)."""
+    from repro_torch.examples import quickstart
+    from repro_torch.exp import smoke as exp_smoke
+    from repro_torch.tools import trace_report
+    t_phase = time.perf_counter()
+    card, card_s = _fig3_sweep("cuda")
+    cpu, cpu_s = _fig3_sweep("cpu")
+    rows_equal = (json.dumps(card["rows"], sort_keys=True)
+                  == json.dumps(cpu["rows"], sort_keys=True))
+    if not rows_equal or not all(card["claims"].values()):
+        raise AssertionError(f"fig3 on the card: rows equal to the CPU's "
+                             f"{rows_equal}, claims {card['claims']}")
+    raw_cells = _fig3_raw_accumulators()
+    mp_launches = _fig3_mp_matmul()
+
+    with tempfile.TemporaryDirectory() as d:
+        rc, smoke_out = _stdout_of(exp_smoke.main,
+                                   ["--cache-dir", d, "--jobs", "2"])
+    if rc != 0 or "exp smoke OK" not in smoke_out:
+        raise AssertionError(f"exp smoke: exit {rc}: {smoke_out[-500:]}")
+
+    _, qs_card = _stdout_of(quickstart.main, ["--device", "cuda"])
+    _, qs_cpu = _stdout_of(quickstart.main, ["--device", "cpu"])
+    if qs_card != qs_cpu or not qs_card:
+        raise AssertionError("quickstart prints other text on the card")
+
+    serve, launches = {}, {}
+    for route, argv in SERVE_LM_ROUTES:
+        serve[route], route_launches = _serve_lm(route, argv)
+        for k, n in route_launches.items():
+            launches[k] = launches.get(k, 0) + n
+
+    rc, report = _stdout_of(trace_report.main, [trace_path])
+    if rc != 0 or "INVALID" in report:
+        raise AssertionError(f"trace_report: exit {rc}: {report[:500]}")
+    log(15, card=smi, fig3_cells=len(card["rows"]), fig3_card_s=card_s,
+        fig3_cpu_s=cpu_s, fig3_rows_equal=rows_equal,
+        fig3_raw_cells_equal=raw_cells,
+        fig3_claims=card["claims"],
+        fig3_mp_matmul_launches=mp_launches["mp_matmul"],
+        exp_smoke=smoke_out.strip().splitlines()[-1],
+        quickstart_lines=len(qs_card.splitlines()), serve_lm=serve,
+        serve_lm_launches=launches,
+        trace_report_lines=len(report.splitlines()),
+        phase_s=time.perf_counter() - t_phase)
+    return {"mp_matmul": mp_launches["mp_matmul"],
+            "fused_dequant_mm": launches.get("fused_dequant_mm", 0)}
 
 
 # ---------------------------------------------------------------- main
@@ -3273,19 +3463,23 @@ def main():
     launches_families = [phase_family(arch, smi, args.profile)
                          for arch in FAMILIES]
     launches13 = phase_encdec(smi, args.profile)
-    launches14 = phase_serving_smoke(smi)
+    with tempfile.TemporaryDirectory() as tmp:
+        trace = os.path.join(tmp, "serving_smoke_trace.json")
+        launches14 = phase_serving_smoke(smi, trace)
+        launches15 = phase_studies(smi, trace)
 
     main_launches = {
         "fused_dequant_mm": launches3["fused_dequant_mm"]
         + launches7["fused_dequant_mm"] + launches8["fused_dequant_mm"]
         + launches9["fused_dequant_mm"]
         + sum(n["fused_dequant_mm"] for n in launches_families)
-        + launches13["fused_dequant_mm"] + launches14["fused_dequant_mm"],
+        + launches13["fused_dequant_mm"] + launches14["fused_dequant_mm"]
+        + launches15["fused_dequant_mm"],
         "fused_qmm": launches4["fidelity_int8"]["fused_qmm"]
         + launches4["int4_exact"]["fused_qmm"] + launches14["fused_qmm"],
         "qmm": launches4["fidelity_int8"]["qmm"] + launches14["qmm"],
         "qmm_packed": launches4["int4_exact"]["qmm_packed"],
-        "mp_matmul": launches6["mp_matmul"],
+        "mp_matmul": launches6["mp_matmul"] + launches15["mp_matmul"],
     }
     kernels = []
     for kname, (source, replaces) in KERNELS.items():

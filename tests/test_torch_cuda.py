@@ -1477,3 +1477,73 @@ def test_serving_smoke_on_the_card(cuda, tmp_path):
     assert main(["smoke", "--trace", path]) == 0
     with open(path) as f:
         assert validate_chrome_trace(json.load(f)) == []
+
+
+@pytest.mark.cuda
+def test_fig3_rows_on_the_card_equal_the_cpus(cuda):
+    """Fig. 3's whole grid through ``core.ipu`` on the card: every row
+    equal to the CPU's."""
+    import json
+
+    from repro_torch import exp
+    from repro_torch.studies import fig3_error
+    rows = {}
+    for dev in ("cuda", "cpu"):
+        res, rep = exp.run_sweep(fig3_error.spec(), exp.EngineConfig(
+            cache=None, device=dev))
+        assert rep.n_executed == 48
+        rows[dev] = json.dumps(exp.rows_from(res, "fig3_error"),
+                               sort_keys=True)
+    assert rows["cuda"] == rows["cpu"]
+
+
+@pytest.mark.cuda
+def test_fig3_raw_accumulators_on_the_card_equal_the_cpus(cuda):
+    """Every Fig. 3 cell's raw accumulators (``hi``, ``lo``, exponent)
+    through ``core.ipu`` on the card equal to the CPU's, integer for
+    integer: the rows are medians and would hide a few that differ."""
+    from repro_torch.core.ipu import fp16_inner_product_raw
+    from repro_torch.studies import fig3_error
+    for p in fig3_error.spec().points():
+        kw = p.kwargs
+        a, b = fig3_error.operands(kw["dist"])
+        cfg = fig3_error.ipu_config(kw["accum"], kw["w"])
+        got = {}
+        for dev in (cuda, "cpu"):
+            acc, e = fp16_inner_product_raw(torch.as_tensor(a, device=dev),
+                                            torch.as_tensor(b, device=dev),
+                                            cfg)
+            got[dev] = [t.cpu() for t in (acc.hi, acc.lo, e)]
+        for x, y in zip(got[cuda], got["cpu"]):
+            assert torch.equal(x, y), p.label()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("accum,dist,w", (("fp16", "laplace", 8),
+                                          ("fp16", "uniform", 16),
+                                          ("fp32", "normal", 20),
+                                          ("fp32", "laplace", 28)))
+def test_mp_matmul_diagonal_is_the_fp_ip_on_fig3_operands(cuda, accum,
+                                                          dist, w):
+    """The kernel's products of Fig. 3's operands: the diagonal of
+    ``mp_matmul(a, b.T)`` bit-equal to ``fp16_inner_product(a, b)``."""
+    from repro_torch.core.ipu import fp16_inner_product
+    from repro_torch.studies import fig3_error
+    a, b = (torch.as_tensor(x, device=cuda)
+            for x in fig3_error.operands(dist))
+    cfg = fig3_error.ipu_config(accum, w)
+    before = tops.launch_counts()["mp_matmul"]
+    diag = torch.diagonal(tops.mp_matmul(a, b.T.contiguous(), cfg))
+    assert tops.launch_counts()["mp_matmul"] == before + 1
+    want = fp16_inner_product(a, b, cfg)
+    bits = torch.int16 if want.element_size() == 2 else torch.int32
+    assert torch.equal(diag.contiguous().view(bits), want.view(bits))
+
+
+@pytest.mark.cuda
+def test_quickstart_prints_the_same_text_on_the_card(cuda, capsys):
+    from repro_torch.examples import quickstart
+    quickstart.main(["--device", "cuda"])
+    card = capsys.readouterr().out
+    quickstart.main(["--device", "cpu"])
+    assert card and card == capsys.readouterr().out

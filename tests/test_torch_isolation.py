@@ -5,12 +5,15 @@ fallback, and no compiler needed to import it.
   ``msgpack`` or any module of ``repro`` — checked on every module's
   syntax tree, and by importing the whole package in a fresh interpreter
   and reading ``sys.modules``. Importing it loads no kernel either.
-  The plan, checkpoint, fabric and router modules are also imported
-  first, each in a fresh interpreter.
+  The plan, checkpoint, fabric and router modules, and the sweep
+  engine, studies, examples and tools, are also imported first, each in
+  a fresh interpreter.
 * Entry points default to CUDA: without a CUDA device and without an
   explicit ``device="cpu"`` they raise (the engine, ``init_params``,
   calibration, ``build_engine``, ``build_replicas`` and
-  ``restore_checkpoint``), for every served family. Every architecture
+  ``restore_checkpoint``), for every served family, and so do the
+  studies and examples that compute with torch (``fig3_error``,
+  ``quickstart``, ``serve_lm``). Every architecture
   of the reference's zoo builds, and its parameter tree resolves to
   policy paths that its projection groups cover.
 * Without ``nvcc`` the kernel loader raises a clear error; it never
@@ -151,9 +154,63 @@ def test_family_modules_stand_alone():
     _imports_alone(FAMILY_MODULES)
 
 
+STUDY_MODULES = (
+    "repro_torch.exp", "repro_torch.exp.sweep", "repro_torch.exp.cache",
+    "repro_torch.exp.runner", "repro_torch.exp.smoke",
+    "repro_torch.studies", "repro_torch.studies.common",
+    "repro_torch.studies.fig3_error", "repro_torch.studies.table1",
+    "repro_torch.studies.fig7_breakdown", "repro_torch.studies.fig8_perf",
+    "repro_torch.studies.fig9_expdiff", "repro_torch.studies.fig10_tradeoff",
+    "repro_torch.studies.run", "repro_torch.core.exact_ref",
+    "repro_torch.examples", "repro_torch.examples.quickstart",
+    "repro_torch.examples.accelerator_study",
+    "repro_torch.examples.serve_lm", "repro_torch.tools",
+    "repro_torch.tools.calibrate_area", "repro_torch.tools.trace_report")
+
+
+def test_study_example_and_tool_modules_stand_alone():
+    """The sweep engine, the paper's studies, the examples and the tools,
+    each imported first in a fresh interpreter, as above."""
+    _imports_alone(STUDY_MODULES)
+
+
 @pytest.fixture
 def no_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def _fig3_main(argv):
+    from repro_torch.studies import fig3_error
+    fig3_error.main(["--no-cache", "--quiet-progress", *argv])
+
+
+def _quickstart_main(argv):
+    from repro_torch.examples import quickstart
+    quickstart.main(argv)
+
+
+def _serve_lm_main(argv):
+    from repro_torch.examples import serve_lm
+    serve_lm.main(["--requests", "2", "--max-new", "2", *argv])
+
+
+@pytest.mark.parametrize("main", (_fig3_main, _quickstart_main,
+                                  _serve_lm_main),
+                         ids=("fig3_error", "quickstart", "serve_lm"))
+def test_study_and_example_entry_points_raise_without_cuda(
+        no_cuda, main, monkeypatch, tmp_path, capsys):
+    """``fig3_error``, ``quickstart`` and ``serve_lm`` compute with torch
+    on ``--device`` (default cuda): without CUDA they raise unless given
+    ``--device cpu``; none falls back to the CPU."""
+    from repro_torch.studies import common
+    monkeypatch.setattr(common, "RESULTS_DIR", str(tmp_path))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        main([])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        main(["--device", "cuda"])
+    assert capsys.readouterr().out == ""
+    main(["--device", "cpu"])
+    assert capsys.readouterr().out
 
 
 def test_entry_points_raise_without_cuda_unless_asked_for_cpu(no_cuda):
