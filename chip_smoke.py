@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--report PATH] [--profile]
 
-Drives the port (``src/repro_torch``) on the card, in fifteen phases,
+Drives the port (``src/repro_torch``) on the card, in sixteen phases,
 each printing one line that starts with ``phase``:
 
 1. device and build: the card's name and power limit (nvidia-smi), and
@@ -165,7 +165,32 @@ each printing one line that starts with ``phase``:
    launched), from ``results/plans/qwen2_0_5b.json``, and as a router
    over ``int8_serving`` and that plan, every request completing its
    ``max_new`` tokens; tok/s, TTFT and launches per route; and
-   ``repro_torch.tools.trace_report`` over phase 14's trace, exit 0.
+   ``repro_torch.tools.trace_report`` over phase 14's trace, exit 0;
+16. the precision planner: ``python -m repro_torch.autotune search``
+   for qwen2-0.5b at full shapes with the default candidates (six
+   modes, fp16_ipu at w 12/16/20/28) and the divergence probe on the
+   card, cold with ``--jobs 1`` (every fp16_ipu probe below w = 28
+   through ``mp_matmul``: exactly 3 widths x 7 projections x 2 layers
+   of the reduced probe model, 42 launches, and no other kernel; each
+   of the 42 calls recorded and held bit-equal to its plain version on
+   its own operands), then warm with ``--jobs 2`` (0 points executed,
+   the same plan file), then the same search on the CPU in its own
+   cache: cycles and efficiency rows ``==``, accuracy rows' divergence
+   within the probe's bound (``objectives.PROBE_KL_RTOL`` and
+   ``PROBE_KL_ATOL``), and whether the CPU selects the same assignment
+   (printed); the probe's numpy-drawn weights and tokens hashing to
+   ``PROBE_DRAW_SHA256``, the value ``tests/test_torch_autotune.py``
+   holds on the CPU (the torch draw's hash printed beside it);
+   ``score --plan`` giving back the plan's metrics from the warm cache,
+   ``repro_torch.tools.plan_report`` rendering it (exit 0); then
+   full-width qwen2-0.5b (weights from seed 0) served from the card's
+   plan (``plan:<file>``,
+   ``act_calibration="auto"``), 8 requests at decode_block 1 and 4,
+   graphed against eager as in phase 3, identical greedy streams, each
+   decode step's launches equal to the count the plan's rules imply and
+   no other kernel; tok/s, TTFT, the cold and warm search seconds, and
+   whether the plan equals the committed reference plan (printed; the
+   probe's weights are another draw than the reference's).
 
 Phases 8-13 assert that f32 matmuls do not run on TF32 (a TF32
 router moves expert selection); each phase frees its model before the
@@ -184,6 +209,7 @@ replayed decode step of seamless-m4t-medium under each policy.
 """
 import argparse
 import dataclasses
+import hashlib
 import json
 import os
 import statistics
@@ -3401,6 +3427,310 @@ def phase_studies(smi, trace_path):
             "fused_dequant_mm": launches.get("fused_dequant_mm", 0)}
 
 
+# ------------------------------------------------------------- phase 16
+
+PLANNER_ARCH = "qwen2-0.5b"
+# sha256 of the probe model's numpy-drawn weights and tokens (reduced
+# qwen2-0.5b, seed 0): tests/test_torch_autotune.py holds the CPU
+# installation to the same value
+PROBE_DRAW_SHA256 = ("437f48216f191db829a5ed92b840e74e"
+                     "d6284a69a72b18017c18d7b9b84958cb")
+# the exact fp16_ipu widths of the default grid (w < 28) times the
+# projections a probe flips: 3 + 1 + 2 + 1 a layer of the reduced
+# model's 2 (the head is not routed through the policy)
+PROBE_MP_MATMUL = 3 * 7 * 2
+
+
+def _draw_digest(*trees):
+    """sha256 over every leaf of dict ``trees`` in sorted path order: its
+    path and its values as f32 bytes (``draw_digest`` of
+    tests/test_torch_autotune.py)."""
+    def leaves(tree, prefix):
+        for k, v in tree.items():
+            path = f"{prefix}/{k}" if prefix else str(k)
+            if isinstance(v, dict):
+                yield from leaves(v, path)
+            else:
+                yield path, v
+    h = hashlib.sha256()
+    for tree in trees:
+        for path, leaf in sorted(leaves(tree, ""), key=lambda kv: kv[0]):
+            h.update(path.encode())
+            h.update(leaf.detach().to("cpu", torch.float32).numpy()
+                     .tobytes())
+    return h.hexdigest()
+
+
+def _probe_draws():
+    """The probe model's draw on the card (numpy seeds; must hash to
+    ``PROBE_DRAW_SHA256``), and for comparison the hash of the model's
+    torch-generator init on this machine's CPU."""
+    from repro_torch.autotune import objectives
+    from repro_torch.configs import reduced
+    from repro_torch.models import registry
+    cfg = reduced(PLANNER_ARCH)
+    got = _draw_digest(*objectives.probe_inputs(cfg, 0, device="cuda"))
+    if got != PROBE_DRAW_SHA256:
+        raise AssertionError(f"the probe's draw hashes to {got}, not "
+                             f"{PROBE_DRAW_SHA256}")
+    return {"numpy_draw_sha256": got,
+            "torch_draw_cpu_sha256": _draw_digest(
+                registry.build(cfg).init(0, "cpu")),
+            "torch": torch.__version__, "numpy": np.__version__}
+
+
+class _RecordedMpMatmul:
+    """Inside the block, every call of the ``mp_matmul`` kernel wrapper
+    is recorded (operands, config, output) and counted as usual."""
+
+    def __enter__(self):
+        from repro_torch.kernels import mpmm
+        self.module, self.real, self.calls = mpmm, mpmm.mp_matmul, []
+
+        def record(a, b, cfg, **kwargs):
+            out = self.real(a, b, cfg, **kwargs)
+            self.calls.append((a.clone(), b.clone(), cfg, kwargs,
+                               out.clone()))
+            return out
+
+        mpmm.mp_matmul = record
+        return self.calls
+
+    def __exit__(self, *exc):
+        self.module.mp_matmul = self.real
+        return False
+
+
+def _calls_exact(calls):
+    """Each recorded ``mp_matmul`` call bit-equal to the plain version on
+    its own operands; returns {"M x K x N w": calls}."""
+    from repro_torch.kernels import ref
+    seen = {}
+    for a, b, cfg, kwargs, out in calls:
+        want = ref.mp_matmul_blocked_ref(a, b, cfg, **kwargs)
+        what = f"{a.shape[0]}x{a.shape[1]}x{b.shape[1]} w{cfg.w}"
+        if out.dtype != want.dtype or not torch.equal(_as_bits(out),
+                                                      _as_bits(want)):
+            raise AssertionError(f"the probe's mp_matmul {what} n={cfg.n}: "
+                                 f"not bit-equal to its plain version")
+        seen[what] = seen.get(what, 0) + 1
+    return dict(sorted(seen.items()))
+
+
+def _search(device, cache, out, jobs):
+    """``python -m repro_torch.autotune search`` for qwen2-0.5b at full
+    shapes, the default candidates, the probe on ``device``: (seconds,
+    points executed, printed text)."""
+    import re
+    from repro_torch.autotune import cli
+    t0 = time.perf_counter()
+    rc, text = _stdout_of(cli.main, [
+        "search", "--model", "qwen2_0_5b", "--shapes", "full",
+        "--device", device, "--jobs", str(jobs), "--cache-dir", cache,
+        "--out", out, "--quiet-progress"])
+    seconds = time.perf_counter() - t0
+    head = re.match(r"# total: \d+ points, \d+ cached, (\d+) executed",
+                    text)
+    if rc != 0 or head is None:
+        raise AssertionError(f"search on {device}: exit {rc}: {text[:500]}")
+    return seconds, int(head.group(1)), text
+
+
+def _cached_table(device, cache):
+    """The score table of a finished search, read back from its cache
+    (0 points executed)."""
+    from repro_torch import exp
+    from repro_torch.autotune import candidates, search
+    from repro_torch.configs import get_config
+    engine = exp.EngineConfig(cache=exp.ResultCache(cache), device=device)
+    table = search.build_scores(
+        PLANNER_ARCH, candidates.groups_for(get_config(PLANNER_ARCH)),
+        candidates.default_candidates(), engine, shapes="full", probe=True)
+    if engine.total.n_executed:
+        raise AssertionError(f"{device} table: {engine.total.summary()}")
+    return table
+
+
+def _tables_agree(card, cpu):
+    """Cycles and efficiency rows ``==``; accuracy rows' analytic bound
+    ``==`` and divergence within the probe's bound. Returns the largest
+    divergence difference, absolute and relative to the CPU's."""
+    from repro_torch.autotune.objectives import PROBE_KL_ATOL, PROBE_KL_RTOL
+    worst_abs = worst_rel = 0.0
+    for key, c in card.scores.items():
+        p = cpu.scores[key]
+        if {k: v for k, v in c.items() if k not in ("divergence",
+                                                   "acc_proxy")} != \
+                {k: v for k, v in p.items() if k not in ("divergence",
+                                                        "acc_proxy")}:
+            raise AssertionError(f"{key}: card row {c} != CPU row {p}")
+        d = abs(c["divergence"] - p["divergence"])
+        if d > PROBE_KL_RTOL * p["divergence"] + PROBE_KL_ATOL:
+            raise AssertionError(f"{key}: divergence on the card "
+                                 f"{c['divergence']} against the CPU's "
+                                 f"{p['divergence']}")
+        worst_abs = max(worst_abs, d)
+        if p["divergence"]:
+            worst_rel = max(worst_rel, d / p["divergence"])
+    if card.scores.keys() != cpu.scores.keys():
+        raise AssertionError("the card's and the CPU's tables differ in "
+                             "their entries")
+    return worst_abs, worst_rel
+
+
+def _plan_kernels(plan, cfg, params):
+    """The kernels one decode step of ``plan`` launches, derived from its
+    rules over the model's projections: an int or fp storage rule one
+    ``fused_dequant_mm`` a projection (the planner marks no int rule
+    exact), an exact fp16_ipu rule (w < 28) one ``mp_matmul``, bf16 and
+    fp16_ipu at w >= 28 none (plain torch products); the head is never
+    routed through the policy."""
+    from repro_torch.models import registry
+    from repro_torch.quant.prepare import iter_projection_weights
+    policy = plan.to_policy()
+    paths = registry.projection_paths(cfg)
+    want = {}
+    for prefix, w in iter_projection_weights(params, paths):
+        spec = policy.spec_for(paths(prefix))
+        kernel = None
+        if spec.mode in ("int8", "int4", "fp8", "fp4"):
+            if spec.exact:
+                raise AssertionError(f"an exact int rule: {spec}")
+            kernel = "fused_dequant_mm"
+        elif spec.mode == "fp16_ipu" and spec.exact:
+            kernel = "mp_matmul"
+        if kernel:
+            want[kernel] = want.get(kernel, 0) + w.shape[0]
+    return want
+
+
+def _serve_plan(path):
+    """Full-width qwen2-0.5b (weights from seed 0) served from the plan
+    at ``path`` (``act_calibration="auto"``), 8 requests at decode_block
+    1 and 4, graphed and eager: identical streams, each decode step's
+    launches equal to the plan's rules, no other kernel."""
+    from repro_torch.autotune.plan import load_plan
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import registry
+    from repro_torch.serving import EngineConfig
+    cfg = dataclasses.replace(get_config(PLANNER_ARCH),
+                              precision_policy=f"plan:{path}")
+    api = registry.build(cfg)
+    params = registry.init_params(cfg, seed=0)
+    step_want = _plan_kernels(load_plan(path), cfg, params)
+    results, streams = {}, {}
+    ops.reset_launch_counts()
+    for blk in (1, 4):
+        config = EngineConfig(batch_slots=8, cache_len=256, prefill_chunk=32,
+                              decode_block=blk, act_calibration="auto")
+        eng, streams[blk] = _graphs_vs_eager(
+            cfg, api, params, config,
+            lambda: _requests(cfg, 8, 8, 32, 8, seed=26), results,
+            f"block{blk}")
+        results[f"block{blk}"]["step_launches"] = _step_launches(eng,
+                                                                 step_want)
+        results[f"block{blk}"]["fused"] = eng.fused
+        routes = eng.routing_report()
+        del eng
+        _free()
+    launches = ops.launch_counts()
+    del params
+    _free()
+    if streams[1] != streams[4]:
+        raise AssertionError("the searched plan: greedy streams differ "
+                             "between decode_block 1 and 4")
+    if {k for k, v in launches.items() if v} != set(step_want):
+        raise AssertionError(f"the searched plan launched {launches}, its "
+                             f"rules imply {step_want} a step")
+    return launches, step_want, routes, results
+
+
+def phase_planner(smi):
+    """The precision planner on the card (see the module docstring,
+    phase 16)."""
+    from repro_torch.autotune import cli
+    from repro_torch.autotune.plan import load_plan
+    from repro_torch.kernels import ops
+    from repro_torch.tools import plan_report
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        card_cache, cpu_cache = (os.path.join(d, n) for n in ("card", "cpu"))
+        plan_path = os.path.join(d, "card.json")
+        draws = _probe_draws()
+        ops.reset_launch_counts()
+        with _RecordedMpMatmul() as calls:
+            cold_s, cold_n, text = _search("cuda", card_cache, plan_path, 1)
+            torch.cuda.synchronize()
+        probe_launches = {k: n for k, n in ops.launch_counts().items() if n}
+        if probe_launches != {"mp_matmul": PROBE_MP_MATMUL} or \
+                len(calls) != PROBE_MP_MATMUL:
+            raise AssertionError(f"the cold search launched "
+                                 f"{probe_launches} ({len(calls)} calls "
+                                 f"recorded), want {PROBE_MP_MATMUL} "
+                                 f"mp_matmul")
+        probe_calls = _calls_exact(calls)
+        del calls
+        with open(plan_path) as f:
+            cold_json = f.read()
+        warm_s, warm_n, _ = _search("cuda", card_cache, plan_path, 2)
+        with open(plan_path) as f:
+            warm_same = f.read() == cold_json
+        if cold_n <= 0 or warm_n != 0 or not warm_same:
+            raise AssertionError(f"search: cold {cold_n} executed, warm "
+                                 f"{warm_n}, warm plan identical "
+                                 f"{warm_same}")
+        if ops.launch_counts()["mp_matmul"] != PROBE_MP_MATMUL:
+            raise AssertionError("the warm search launched a kernel")
+        cpu_path = os.path.join(d, "cpu.json")
+        cpu_s, cpu_n, _ = _search("cpu", cpu_cache, cpu_path, 1)
+        card_table = _cached_table("cuda", card_cache)
+        kl_abs, kl_rel = _tables_agree(card_table,
+                                       _cached_table("cpu", cpu_cache))
+        plan, cpu_plan = load_plan(plan_path), load_plan(cpu_path)
+        same_as_cpu = plan.to_json()["rules"] == cpu_plan.to_json()["rules"]
+
+        rc, scored = _stdout_of(cli.main, [
+            "score", "--model", "qwen2_0_5b", "--shapes", "full",
+            "--cache-dir", card_cache, "--plan", plan_path,
+            "--quiet-progress"])
+        head, body = scored.split("\n", 1)
+        if rc != 0 or " 0 executed " not in head or \
+                json.loads(body)["metrics"] != plan.metrics:
+            raise AssertionError(f"score --plan: exit {rc}: {scored[:500]}")
+        rc, report = _stdout_of(plan_report.main, [plan_path])
+        if rc != 0 or "Pareto frontier" not in report:
+            raise AssertionError(f"plan_report: exit {rc}: {report[:500]}")
+
+        launches, step_want, routes, serve = _serve_plan(plan_path)
+    committed = load_plan(PLAN_FILE)
+    log(16, card=smi, search_cold_s=cold_s, search_cold_executed=cold_n,
+        search_warm_jobs2_s=warm_s, search_warm_executed=warm_n,
+        search_cpu_s=cpu_s, search_cpu_executed=cpu_n,
+        probe_launches=probe_launches, probe_calls_bit_equal=probe_calls,
+        probe_draws=draws,
+        divergence_card_vs_cpu={"max_abs": kl_abs, "max_rel": kl_rel},
+        divergence_card={f"{g}/{k}": v["divergence"]
+                         for (g, k), v in card_table.scores.items()
+                         if v["divergence"]},
+        selected_from=plan.meta["selected_from"],
+        assignment={r.group: f"{r.mode}/w{r.w}" for r in plan.rules},
+        metrics={k: v for k, v in plan.metrics.items() if k != "modes"},
+        frontier=len(plan.frontier),
+        selected_same_as_cpu=same_as_cpu,
+        cpu_assignment=cpu_plan.assignment(),
+        same_as_committed_plan=(plan.assignment()
+                                == committed.assignment()),
+        plan_report_lines=len(report.splitlines()),
+        search_printed=text.strip().splitlines()[1:3],
+        serve_routes=sorted(set(routes.values())),
+        serve_step_want=step_want, serve_launches=launches, runs=serve,
+        phase_s=time.perf_counter() - t_phase)
+    return {"mp_matmul": probe_launches["mp_matmul"]
+            + launches.get("mp_matmul", 0),
+            "fused_dequant_mm": launches.get("fused_dequant_mm", 0)}
+
+
 # ---------------------------------------------------------------- main
 
 KERNELS = {
@@ -3467,6 +3797,7 @@ def main():
         trace = os.path.join(tmp, "serving_smoke_trace.json")
         launches14 = phase_serving_smoke(smi, trace)
         launches15 = phase_studies(smi, trace)
+    launches16 = phase_planner(smi)
 
     main_launches = {
         "fused_dequant_mm": launches3["fused_dequant_mm"]
@@ -3474,12 +3805,13 @@ def main():
         + launches9["fused_dequant_mm"]
         + sum(n["fused_dequant_mm"] for n in launches_families)
         + launches13["fused_dequant_mm"] + launches14["fused_dequant_mm"]
-        + launches15["fused_dequant_mm"],
+        + launches15["fused_dequant_mm"] + launches16["fused_dequant_mm"],
         "fused_qmm": launches4["fidelity_int8"]["fused_qmm"]
         + launches4["int4_exact"]["fused_qmm"] + launches14["fused_qmm"],
         "qmm": launches4["fidelity_int8"]["qmm"] + launches14["qmm"],
         "qmm_packed": launches4["int4_exact"]["qmm_packed"],
-        "mp_matmul": launches6["mp_matmul"] + launches15["mp_matmul"],
+        "mp_matmul": launches6["mp_matmul"] + launches15["mp_matmul"]
+        + launches16["mp_matmul"],
     }
     kernels = []
     for kname, (source, replaces) in KERNELS.items():

@@ -17,7 +17,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from repro_torch.layers.common import (apply_rope, norm_init,
+from repro_torch.layers.common import (Generator, apply_rope, norm_init,
                                        rms_norm, softcap)
 from repro_torch.layers.mplinear import linear_init, mp_linear
 
@@ -58,7 +58,7 @@ class KVCache(NamedTuple):
     pos: torch.Tensor  # (B, C) int32 absolute positions, -1 = empty
 
 
-def init(generator: torch.Generator, cfg: AttnConfig, device,
+def init(generator: Generator, cfg: AttnConfig, device,
          dtype=torch.float32, lead=()):
     p = {
         "wq": linear_init(generator, cfg.d_model, cfg.q_dim, cfg.qkv_bias,

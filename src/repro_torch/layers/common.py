@@ -3,19 +3,65 @@
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Union
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
+# an init's source of draws (``seeded_generator``)
+Generator = Union[torch.Generator, np.random.Generator]
 
-def _trunc_normal(shape, generator: torch.Generator, device) -> torch.Tensor:
+
+def seeded_generator(seed: int, device, draws: str = "torch"):
+    """The source of an init's random draws. ``draws="torch"``: a
+    ``torch.Generator`` on ``device``, seeded ``seed`` (its bits depend
+    on the device and on the torch build). ``draws="numpy"``: numpy's
+    PCG64 seeded ``seed``, drawn in float64 on the host and moved to
+    ``device``, so every device and installation draws the same weights
+    (slower: for small models)."""
+    if draws == "numpy":
+        return np.random.default_rng(seed)
+    if draws != "torch":
+        raise ValueError(f"draws must be 'torch' or 'numpy', got {draws!r}")
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    return gen
+
+
+def _from_numpy(x: np.ndarray, device) -> torch.Tensor:
+    return torch.from_numpy(x.astype(np.float32)).to(device)
+
+
+def _trunc_normal(shape, generator: Generator, device) -> torch.Tensor:
+    if isinstance(generator, np.random.Generator):
+        # redraw what falls outside +-3 until nothing does
+        x = generator.standard_normal(shape)
+        out = np.abs(x) > 3.0
+        while out.any():
+            x[out] = generator.standard_normal(int(out.sum()))
+            out = np.abs(x) > 3.0
+        return _from_numpy(x, device)
     t = torch.empty(shape, dtype=torch.float32, device=device)
     return torch.nn.init.trunc_normal_(t, 0.0, 1.0, -3.0, 3.0,
                                        generator=generator)
 
 
-def dense_init(generator: torch.Generator, d_in: int, d_out: int,
+def randn(shape, generator: Generator, device) -> torch.Tensor:
+    """Standard normal f32 draws from either source."""
+    if isinstance(generator, np.random.Generator):
+        return _from_numpy(generator.standard_normal(shape), device)
+    return torch.randn(shape, generator=generator, device=device)
+
+
+def rand(shape, generator: Generator, device) -> torch.Tensor:
+    """Uniform [0, 1) f32 draws from either source."""
+    if isinstance(generator, np.random.Generator):
+        return _from_numpy(generator.random(shape), device)
+    return torch.rand(shape, generator=generator, device=device)
+
+
+def dense_init(generator: Generator, d_in: int, d_out: int,
                device, dtype=torch.float32, lead=(),
                scale: Optional[float] = None) -> torch.Tensor:
     """Truncated normal at +-3 sigma times ``1/sqrt(d_in)`` (the
@@ -25,7 +71,7 @@ def dense_init(generator: torch.Generator, d_in: int, d_out: int,
             * scale).to(dtype)
 
 
-def embed_init(generator: torch.Generator, vocab: int, d: int, device,
+def embed_init(generator: Generator, vocab: int, d: int, device,
                dtype=torch.float32) -> torch.Tensor:
     return (_trunc_normal((vocab, d), generator, device)
             * (d ** -0.5)).to(dtype)

@@ -4,11 +4,11 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.layers.common import activation, dense_init
+from repro_torch.layers.common import Generator, activation, dense_init
 from repro_torch.layers.mplinear import mp_linear
 
 
-def init(generator: torch.Generator, d_model: int, d_ff: int, device,
+def init(generator: Generator, d_model: int, d_ff: int, device,
          dtype=torch.float32, lead=()):
     return {
         "w_gate": {"w": dense_init(generator, d_model, d_ff, device, dtype,

@@ -24,7 +24,7 @@ import dataclasses
 
 import torch
 
-from repro_torch.layers.common import activation, dense_init
+from repro_torch.layers.common import Generator, activation, dense_init
 
 
 @dataclasses.dataclass(frozen=True)
@@ -41,7 +41,7 @@ class MoEConfig:
     dispatch: str = "einsum"
 
 
-def init(generator: torch.Generator, cfg: MoEConfig, device,
+def init(generator: Generator, cfg: MoEConfig, device,
          dtype=torch.float32, lead=()):
     """Router (d, E) in f32 whatever ``dtype``; experts stacked
     (E, d_in, d_out), each drawn as ``dense_init`` draws one weight."""

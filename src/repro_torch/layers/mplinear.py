@@ -25,7 +25,7 @@ import torch
 
 from repro_torch.core.policy import PrecisionSpec
 from repro_torch.kernels import ops as kops
-from repro_torch.layers.common import dense_init
+from repro_torch.layers.common import Generator, dense_init
 from repro_torch.quant.prepare import PreparedWeight
 from repro_torch.quant.quantize import (FP_FORMATS, fake_quant, fp_dequantize,
                                         fp_quantize, quantize_symmetric)
@@ -267,7 +267,7 @@ def _fp16_ipu_executor(w, x, spec: PrecisionSpec, compute_dtype):
     return y.to(torch.float32).reshape(*lead, -1)
 
 
-def linear_init(generator: torch.Generator, d_in: int, d_out: int,
+def linear_init(generator: Generator, d_in: int, d_out: int,
                 bias: bool, device, dtype=torch.float32, lead=()):
     """``{"w": (*lead, d_in, d_out)[, "b": zeros (*lead, d_out)]}``."""
     p = {"w": dense_init(generator, d_in, d_out, device, dtype, lead)}

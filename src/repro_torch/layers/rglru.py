@@ -24,7 +24,8 @@ from typing import List, NamedTuple, Tuple
 
 import torch
 
-from repro_torch.layers.common import activation, dense_init
+from repro_torch.layers.common import (Generator, activation, dense_init,
+                                       rand, randn)
 from repro_torch.layers.mplinear import linear_init, mp_linear
 
 _C = 8.0
@@ -42,7 +43,7 @@ class RGLRUState(NamedTuple):
     conv: torch.Tensor  # (B, conv_width - 1, d_rnn) conv tail
 
 
-def init(generator: torch.Generator, cfg: RGLRUConfig, device,
+def init(generator: Generator, cfg: RGLRUConfig, device,
          dtype=torch.float32, lead=()):
     """Seeded random parameters with the reference's tree and
     distributions; Lambda so that the decay a^c lies in [0.9, 0.999]."""
@@ -51,10 +52,8 @@ def init(generator: torch.Generator, cfg: RGLRUConfig, device,
     def lin(d_in, d_out):
         return linear_init(generator, d_in, d_out, False, device, dtype, lead)
 
-    conv_w = torch.randn((*lead, cfg.conv_width, dr), generator=generator,
-                         device=device) * 0.1
-    u = torch.rand((*lead, dr), generator=generator, device=device) \
-        * (0.999 - 0.9) + 0.9
+    conv_w = randn((*lead, cfg.conv_width, dr), generator, device) * 0.1
+    u = rand((*lead, dr), generator, device) * (0.999 - 0.9) + 0.9
     lam = torch.log(torch.expm1(-torch.log(u) / _C))       # softplus^-1
     zeros = lambda: torch.zeros((*lead, dr), dtype=dtype,  # noqa: E731
                                 device=device)

@@ -26,7 +26,7 @@ from typing import NamedTuple, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.layers.common import dense_init
+from repro_torch.layers.common import Generator, dense_init, randn
 from repro_torch.layers.mplinear import linear_init, mp_linear
 
 
@@ -49,7 +49,7 @@ class RWKVState(NamedTuple):
     x_prev_c: torch.Tensor  # (B, d) last input of channel mix
 
 
-def init(generator: torch.Generator, cfg: RWKVConfig, device,
+def init(generator: Generator, cfg: RWKVConfig, device,
          dtype=torch.float32, lead=()):
     """Seeded random parameters with the reference's tree and
     distributions (not its bits); ``lead`` stacks layers."""
@@ -70,8 +70,7 @@ def init(generator: torch.Generator, cfg: RWKVConfig, device,
         "w_lora_b": dense_init(generator, cfg.lora_rank, d, device, dtype,
                                lead),
         "w_bias": full(-6.0),
-        "u": (torch.randn((*lead, h, n), generator=generator,
-                          device=device) * 0.1).to(dtype),
+        "u": (randn((*lead, h, n), generator, device) * 0.1).to(dtype),
         "c_key": lin(d, cfg.d_ff), "c_val": lin(cfg.d_ff, d),
         "c_rec": lin(d, d),
         "c_mu": {k: full(0.5) for k in ("k", "r")},

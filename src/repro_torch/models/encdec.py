@@ -27,7 +27,7 @@ from repro_torch.device import resolve_device
 from repro_torch.layers import attention, mlp
 from repro_torch.layers.attention import AttnConfig, KVCache
 from repro_torch.layers.common import (apply_norm, dense_init, embed_init,
-                                       norm_init)
+                                       norm_init, seeded_generator)
 from repro_torch.layers.mplinear import linear_init, mp_linear
 from repro_torch.models.lm import _embed, _head, layer_tree
 
@@ -48,7 +48,8 @@ def n_enc_layers(cfg: ModelConfig) -> int:
     return cfg.n_enc_layers or cfg.n_layers
 
 
-def init(cfg: ModelConfig, seed: int = 0, device=None):
+def init(cfg: ModelConfig, seed: int = 0, device=None,
+         draws: str = "torch"):
     """Random parameters from a seeded ``torch.Generator`` on the target
     device, in the reference's tree: ``embed``, ``frontend_proj`` (with
     bias), stacked ``enc_blocks`` and ``dec_blocks``, ``enc_norm``,
@@ -56,8 +57,7 @@ def init(cfg: ModelConfig, seed: int = 0, device=None):
     reference's, not its bits. Defaults to the CUDA device."""
     device = resolve_device(device)
     dtype = getattr(torch, cfg.param_dtype)
-    gen = torch.Generator(device=device)
-    gen.manual_seed(seed)
+    gen = seeded_generator(seed, device, draws)
     d, ln = cfg.d_model, cfg.norm
     enc, dec = (n_enc_layers(cfg),), (cfg.n_layers,)
     return {

@@ -20,7 +20,7 @@ from repro_torch.device import resolve_device
 from repro_torch.layers import attention, mlp, rglru
 from repro_torch.layers.attention import AttnConfig
 from repro_torch.layers.common import (apply_norm, embed_init, norm_init,
-                                       softcap)
+                                       seeded_generator, softcap)
 from repro_torch.layers.mplinear import _dot_f32
 from repro_torch.models.lm import layer_tree
 
@@ -56,13 +56,13 @@ def _block_init(gen, cfg: ModelConfig, kind: str, device, dtype, lead=()):
     return p
 
 
-def init(cfg: ModelConfig, seed: int = 0, device=None):
+def init(cfg: ModelConfig, seed: int = 0, device=None,
+         draws: str = "torch"):
     """Seeded random parameters on ``device`` (CUDA by default)."""
     device = resolve_device(device)
     dtype = getattr(torch, cfg.param_dtype)
     pat, n_groups, n_tail = _pattern(cfg)
-    gen = torch.Generator(device=device)
-    gen.manual_seed(seed)
+    gen = seeded_generator(seed, device, draws)
     return {
         "embed": {"w": embed_init(gen, cfg.padded_vocab, cfg.d_model,
                                   device, dtype)},

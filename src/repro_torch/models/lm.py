@@ -24,7 +24,7 @@ from repro_torch.device import resolve_device
 from repro_torch.layers import attention, mlp, moe
 from repro_torch.layers.attention import AttnConfig, KVCache
 from repro_torch.layers.common import (apply_norm, dense_init, embed_init,
-                                       norm_init, softcap)
+                                       norm_init, seeded_generator, softcap)
 from repro_torch.layers.mplinear import _dot_f32
 from repro_torch.quant.prepare import PreparedWeight
 
@@ -70,11 +70,14 @@ def _block_init(gen, cfg: ModelConfig, kind: str, device, dtype, lead):
     return p
 
 
-def init(cfg: ModelConfig, seed: int = 0, device=None):
+def init(cfg: ModelConfig, seed: int = 0, device=None,
+         draws: str = "torch"):
     """Random parameters from a seeded ``torch.Generator`` on the target
-    device: truncated normal at +-3 sigma times 1/sqrt(d_in), and
-    d**-0.5 for the embedding (the reference's distribution, not its
-    bits). Defaults to the CUDA device; pass ``device="cpu"`` for CPU."""
+    device (or, ``draws="numpy"``, numpy's: the same bits on every
+    device and installation; ``layers.common.seeded_generator``):
+    truncated normal at +-3 sigma times 1/sqrt(d_in), and d**-0.5 for
+    the embedding (the reference's distribution, not its bits). Defaults
+    to the CUDA device; pass ``device="cpu"`` for CPU."""
     device = resolve_device(device)
     dtype = getattr(torch, cfg.param_dtype)
     kinds = group_kinds(cfg)
@@ -82,8 +85,7 @@ def init(cfg: ModelConfig, seed: int = 0, device=None):
         raise ValueError(f"{cfg.arch_id}: {cfg.n_layers} layers do not "
                          f"split into groups of {kinds}")
     n_groups = cfg.n_layers // len(kinds)
-    gen = torch.Generator(device=device)
-    gen.manual_seed(seed)
+    gen = seeded_generator(seed, device, draws)
     params = {
         "embed": {"w": embed_init(gen, cfg.padded_vocab, cfg.d_model,
                                   device, dtype)},

@@ -2,7 +2,7 @@
 ``repro/models/registry.py``): ``lm``, ``vlm``, ``rwkv``, ``griffin``
 and ``encdec``.
 
-``build(cfg)`` -> :class:`ModelAPI` with ``init(seed, device)``,
+``build(cfg)`` -> :class:`ModelAPI` with ``init(seed, device, draws)``,
 ``prefill``, ``decode_step``, ``prefill_chunk`` (``lm`` only; None
 elsewhere), ``init_cache(batch, max_len, device)`` and the ``prepare``
 hook; ``encdec``'s prefill also takes ``batch["frames"]`` and returns
@@ -322,7 +322,7 @@ def make_block_decode(api: "ModelAPI", n: int, policy=None,
 
 class ModelAPI(NamedTuple):
     cfg: ModelConfig
-    init: Callable            # init(seed=0, device=None) -> params
+    init: Callable            # init(seed=0, device=None, draws="torch")
     loss_fn: Callable         # training waits for a later slice (None)
     prefill: Callable
     decode_step: Callable
@@ -359,7 +359,8 @@ def build(cfg: ModelConfig) -> ModelAPI:
                                     batch["lengths"], caches)
     return ModelAPI(
         cfg,
-        lambda seed=0, device=None: mod.init(cfg, seed, device),
+        lambda seed=0, device=None, draws="torch": mod.init(
+            cfg, seed, device, draws),
         None,
         prefill,
         lambda p, batch, caches: mod.decode_step(

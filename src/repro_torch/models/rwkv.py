@@ -16,7 +16,7 @@ from repro_torch.core.policy import get_policy
 from repro_torch.device import resolve_device
 from repro_torch.layers import rwkv6
 from repro_torch.layers.common import (apply_norm, embed_init, norm_init,
-                                       softcap)
+                                       seeded_generator, softcap)
 from repro_torch.layers.mplinear import _dot_f32, linear_init
 from repro_torch.models.lm import layer_tree
 
@@ -25,12 +25,12 @@ def _rwkv_cfg(cfg: ModelConfig) -> rwkv6.RWKVConfig:
     return rwkv6.RWKVConfig(cfg.d_model, cfg.n_heads, cfg.d_ff)
 
 
-def init(cfg: ModelConfig, seed: int = 0, device=None):
+def init(cfg: ModelConfig, seed: int = 0, device=None,
+         draws: str = "torch"):
     """Seeded random parameters on ``device`` (CUDA by default)."""
     device = resolve_device(device)
     dtype = getattr(torch, cfg.param_dtype)
-    gen = torch.Generator(device=device)
-    gen.manual_seed(seed)
+    gen = seeded_generator(seed, device, draws)
     lead = (cfg.n_layers,)
     d = cfg.d_model
     return {

@@ -16,19 +16,20 @@ import torch
 from repro_torch.configs import ModelConfig
 from repro_torch.core.policy import get_policy
 from repro_torch.device import resolve_device
-from repro_torch.layers.common import activation, apply_norm
+from repro_torch.layers.common import (activation, apply_norm,
+                                       seeded_generator)
 from repro_torch.layers.mplinear import linear_init, mp_linear
 from repro_torch.models import lm
 
 
-def init(cfg: ModelConfig, seed: int = 0, device=None):
+def init(cfg: ModelConfig, seed: int = 0, device=None,
+         draws: str = "torch"):
     """``lm.init`` plus ``projector/fc1`` (vit_dim -> d) and ``fc2``
     (d -> d), both with bias, from a generator seeded ``seed + 1``."""
     device = resolve_device(device)
     dtype = getattr(torch, cfg.param_dtype)
-    params = lm.init(cfg, seed, device)
-    gen = torch.Generator(device=device)
-    gen.manual_seed(seed + 1)
+    params = lm.init(cfg, seed, device, draws)
+    gen = seeded_generator(seed + 1, device, draws)
     params["projector"] = {
         "fc1": linear_init(gen, cfg.vit_dim, cfg.d_model, True, device,
                            dtype),

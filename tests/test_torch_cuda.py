@@ -1547,3 +1547,69 @@ def test_quickstart_prints_the_same_text_on_the_card(cuda, capsys):
     card = capsys.readouterr().out
     quickstart.main(["--device", "cpu"])
     assert card and card == capsys.readouterr().out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("group,mode,w", (("attn_qkv", "fp16_ipu", 12),
+                                          ("ffn_in", "fp16_ipu", 16),
+                                          ("ffn_out", "fp16_ipu", 20),
+                                          ("attn_wo", "int8", 16),
+                                          ("ffn_in", "fp8", 16),
+                                          ("head", "int4", 16)))
+def test_probe_on_the_card_matches_the_cpu(cuda, monkeypatch, group, mode,
+                                           w):
+    """The planner's accuracy point on the card and on the CPU: the same
+    weights and tokens (numpy draws), the KL within the stated bound, the
+    analytic bound equal; an exact fp16_ipu candidate launches
+    ``mp_matmul`` once a projection of its group (2 layers), each call
+    bit-equal to its plain version on the same operands (the KL alone
+    cannot see the IPU's truncation), any other candidate none."""
+    from repro_torch.autotune import objectives
+    from repro_torch.autotune.objectives import PROBE_KL_ATOL, PROBE_KL_RTOL
+    before = tops.launch_counts()
+    calls = []
+    real = tmpmm.mp_matmul
+
+    def recording(a, b, cfg, **kwargs):
+        out = real(a, b, cfg, **kwargs)
+        calls.append((a.clone(), b.clone(), cfg, kwargs, out.clone()))
+        return out
+
+    monkeypatch.setattr(tmpmm, "mp_matmul", recording)
+    card = objectives.accuracy_point("qwen2-0.5b", group, mode, w, 28,
+                                     device="cuda")
+    torch.cuda.synchronize()
+    monkeypatch.undo()
+    launched = {k: n - before[k] for k, n in tops.launch_counts().items()
+                if n != before[k]}
+    cpu = objectives.accuracy_point("qwen2-0.5b", group, mode, w, 28,
+                                    device="cpu")
+    assert card["bound_rel"] == cpu["bound_rel"]
+    assert abs(card["divergence"] - cpu["divergence"]) \
+        <= PROBE_KL_RTOL * cpu["divergence"] + PROBE_KL_ATOL, (card, cpu)
+    per_layer = {"attn_qkv": 3, "attn_wo": 1, "ffn_in": 2, "ffn_out": 1}
+    if mode == "fp16_ipu" and w < 28:
+        assert launched == {"mp_matmul": 2 * per_layer[group]}
+        assert len(calls) == 2 * per_layer[group]
+        for a, b, cfg, kwargs, out in calls:
+            assert cfg.w == w
+            want = tref.mp_matmul_blocked_ref(a, b, cfg, **kwargs)
+            bits = {2: torch.int16, 4: torch.int32}[out.element_size()]
+            assert out.dtype == want.dtype and torch.equal(
+                out.view(bits), want.view(bits)), \
+                (tuple(a.shape), tuple(b.shape), cfg)
+    else:
+        assert launched == {} and calls == []
+
+
+@pytest.mark.cuda
+def test_autotune_smoke_on_the_card(cuda, tmp_path, capsys):
+    """``python -m repro_torch.autotune smoke`` on the card (its default
+    device): the reference's contract, and the cold run's probes of the
+    exact fp16_ipu candidate launch ``mp_matmul``."""
+    from repro_torch.autotune import cli
+    before = tops.launch_counts()["mp_matmul"]
+    assert cli.main(["smoke", "--cache-dir", str(tmp_path)]) == 0
+    assert capsys.readouterr().out.startswith("autotune smoke OK")
+    # 4 projection groups a probe: 2 x (3 + 1 + 2 + 1) projections
+    assert tops.launch_counts()["mp_matmul"] - before == 14

@@ -5,15 +5,18 @@ fallback, and no compiler needed to import it.
   ``msgpack`` or any module of ``repro`` — checked on every module's
   syntax tree, and by importing the whole package in a fresh interpreter
   and reading ``sys.modules``. Importing it loads no kernel either.
-  The plan, checkpoint, fabric and router modules, and the sweep
-  engine, studies, examples and tools, are also imported first, each in
-  a fresh interpreter.
+  The plan, checkpoint, fabric and router modules, the sweep engine,
+  studies, examples and tools, and the planner's search, its command
+  line and ``plan_report``, are also imported first, each in a fresh
+  interpreter.
 * Entry points default to CUDA: without a CUDA device and without an
   explicit ``device="cpu"`` they raise (the engine, ``init_params``,
   calibration, ``build_engine``, ``build_replicas`` and
   ``restore_checkpoint``), for every served family, and so do the
   studies and examples that compute with torch (``fig3_error``,
-  ``quickstart``, ``serve_lm``). Every architecture
+  ``quickstart``, ``serve_lm``), and the planner's ``search``, ``score``
+  and ``smoke`` (its accuracy objective takes the device, with or
+  without the probe) and ``plan_act_scales``. Every architecture
   of the reference's zoo builds, and its parameter tree resolves to
   policy paths that its projection groups cover.
 * Without ``nvcc`` the kernel loader raises a clear error; it never
@@ -174,6 +177,38 @@ def test_study_example_and_tool_modules_stand_alone():
     _imports_alone(STUDY_MODULES)
 
 
+PLANNER_MODULES = (
+    "repro_torch.autotune.candidates", "repro_torch.autotune.objectives",
+    "repro_torch.autotune.search", "repro_torch.autotune.cli",
+    "repro_torch.autotune.__main__", "repro_torch.tools.plan_report")
+
+
+def test_planner_modules_stand_alone():
+    """The planner's candidates, objectives, search and command line, and
+    ``tools.plan_report``, each imported first in a fresh interpreter, as
+    above."""
+    _imports_alone(PLANNER_MODULES)
+
+
+def test_loading_a_plan_imports_no_model():
+    """``repro_torch.autotune`` resolves its names lazily: loading a plan
+    through it pulls neither the model stack nor the search."""
+    plan = PKG.parents[1] / "results" / "plans" / "qwen2_0_5b.json"
+    prog = ("import sys\n"
+            "from repro_torch.autotune import load_plan\n"
+            f"load_plan({str(plan)!r})\n"
+            "bad = sorted(n for n in sys.modules if n.startswith(\n"
+            "    ('repro_torch.models', 'repro_torch.layers',\n"
+            "     'repro_torch.autotune.search', 'jax', 'repro.')))\n"
+            "assert not bad, bad\n"
+            "print('ok')\n")
+    env = {"PYTHONPATH": str(PKG.parent), "PATH": "/usr/bin:/bin"}
+    res = subprocess.run([sys.executable, "-c", prog], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "ok"
+
+
 @pytest.fixture
 def no_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -331,3 +366,42 @@ def test_every_arch_builds_and_resolves_its_projection_paths(arch):
     groups = registry.projection_groups(cfg)
     for path in resolved:
         assert any(re.search(g.pattern, path) for g in groups), path
+
+
+def test_planner_raises_without_cuda_unless_asked_for_cpu(no_cuda, tmp_path,
+                                                          capsys):
+    """``python -m repro_torch.autotune search`` (with the probe or
+    without), ``score`` and ``smoke`` score accuracy on ``--device``
+    (default cuda): without CUDA they raise naming the flag, and write
+    nothing; ``--device cpu`` searches on the CPU. The probe and
+    ``plan_act_scales`` raise the same way unless given ``device="cpu"``."""
+    from repro_torch.autotune import cli, objectives
+    from repro_torch.autotune.plan import load_plan
+    out = tmp_path / "plan.json"
+    search = ["search", "--model", "qwen2-0.5b", "--shapes", "reduced",
+              "--modes", "bf16", "int8", "fp16_ipu", "--widths", "12",
+              "--cache-dir", str(tmp_path / "cache"), "--quiet-progress",
+              "--out", str(out)]
+    for argv in (search, search + ["--no-probe"],
+                 search + ["--device", "cuda"],
+                 ["smoke", "--cache-dir", str(tmp_path / "smoke")]):
+        with pytest.raises(RuntimeError, match="--device cpu"):
+            cli.main(argv)
+    assert not out.exists() and not (tmp_path / "cache").exists()
+    assert not (tmp_path / "smoke").exists()
+    assert cli.main(search + ["--device", "cpu"]) == 0
+    assert capsys.readouterr().out
+    plan = load_plan(str(out))
+    assert plan.meta["probe"] is True
+    score = ["score", *search[1:-2], "--plan", str(out)]
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        cli.main(score)
+    assert cli.main(score + ["--device", "cpu"]) == 0
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        objectives.accuracy_point("qwen2-0.5b", "ffn_in", "fp16_ipu", 12,
+                                  28, device="cuda")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        objectives.divergence_probe("qwen2-0.5b", "ffn_in", "int8", 16, 28)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        cli.plan_act_scales(plan)
+    assert cli.plan_act_scales(plan, device="cpu")
