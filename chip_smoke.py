@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--report PATH] [--profile]
 
-Drives the port (``src/repro_torch``) on the card, in sixteen phases,
+Drives the port (``src/repro_torch``) on the card, in seventeen phases,
 each printing one line that starts with ``phase``:
 
 1. device and build: the card's name and power limit (nvidia-smi), and
@@ -191,6 +191,30 @@ each printing one line that starts with ``phase``:
    no other kernel; tok/s, TTFT, the cold and warm search seconds, and
    whether the plan equals the committed reference plan (printed; the
    probe's weights are another draw than the reference's).
+17. the serving fabric at full width: qwen2-0.5b (weights from seed 0)
+   prepared and calibrated once under ``int4_serving`` (8 slots, a
+   256-token cache, decode_block 4), saved as a serve-ready checkpoint
+   and rebuilt by ``build_engine`` with 0 weight quantizations, 0
+   calibrations and the saved engine's streams; then a port
+   ``Controller`` on a ManualClock with two in-process workers and one
+   TCP subprocess worker (``python -m repro_torch.fabric worker
+   --register --resume``, its checkpoint from the RegisterAck) on the
+   same card serves phase 3's 16 requests twice (a first and a warm
+   wave): streams equal to the single engine's, online correction on
+   transported stats, every worker routed; then an in-process worker
+   dies silently mid-flight (an injected ``WorkerFailure``, declared
+   dead by the heartbeat timeout) and then the subprocess is killed
+   mid-flight (``proc.kill()``): each requeues (> 0), loses nothing and
+   keeps the streams; then the chaos contract
+   (``repro_torch.fabric.chaos_smoke.check_contract``) at full width:
+   drops, duplicates, partial writes, a heartbeat stall, a partition
+   and a kill with zero loss and exact streams, the partition alone
+   resumed in place (requeued 0) and two runs identical; exactly 7 x
+   24 ``fused_dequant_mm`` launches per worker decode step and no other
+   kernel; seconds per part, fleet tok/s beside phase 3's warm
+   single-engine tok/s, the controller's host ms per tick, the codec's
+   microseconds per StatsSnapshot and Heartbeat encode and decode, and
+   seconds from each kill to the last completion.
 
 Phases 8-13 assert that f32 matmuls do not run on TF32 (a TF32
 router moves expert selection); each phase frees its model before the
@@ -3731,6 +3755,424 @@ def phase_planner(smi):
             "fused_dequant_mm": launches.get("fused_dequant_mm", 0)}
 
 
+# ------------------------------------------------------------- phase 17
+
+FABRIC_SLOTS = 8
+# the longest the fleet driver waits for the subprocess worker's
+# heartbeat before it calls the worker hung
+SUBPROCESS_SILENCE_S = 120.0
+
+
+def _wave(cfg, rid0):
+    """Phase 3's workload (16 requests, 8-64-token prompts, 16 new
+    tokens, seed 7), rids from ``rid0``."""
+    reqs = _requests(cfg, 16, 8, 64, 16, seed=7)
+    for r in reqs:
+        r.rid += rid0
+    return reqs
+
+
+def _codec_us(stats, reps=2000):
+    """Median microseconds to encode and to decode one StatsSnapshot
+    (``stats``: a measured engine's snapshot) and one Heartbeat through
+    the port's wire codec, on this host."""
+    from repro_torch.fabric import transport as tp
+    out = {}
+    for name, msg in (("StatsSnapshot", tp.StatsSnapshot(
+            name="worker-a", stats=stats, slots=FABRIC_SLOTS, completed=16)),
+            ("Heartbeat", tp.Heartbeat(tick=123, time=45.5))):
+        data = tp.encode_message(msg)
+        if tp.decode_message(data) != msg:
+            raise AssertionError(f"{name} does not round-trip the wire")
+        for what, fn, arg in (("encode", tp.encode_message, msg),
+                              ("decode", tp.decode_message, data)):
+            samples = []
+            for _ in range(5):
+                t0 = time.perf_counter()
+                for _ in range(reps):
+                    fn(arg)
+                samples.append((time.perf_counter() - t0) / reps * 1e6)
+            out[f"{name}_{what}_us"] = statistics.median(samples)
+        out[f"{name}_bytes"] = len(data)
+    return out
+
+
+class _FleetDriver:
+    """Ticks a controller to drained under its ManualClock, one clock
+    second a tick, and holds each tick until the subprocess worker
+    ``sub`` (while connected and routable) has heartbeated in it: the
+    subprocess steps on the wall clock, so a CUDA graph capture in it
+    must not read as silence to the heartbeat timeout. Times the
+    controller's own host work per tick (its tick less the in-process
+    workers' ticks it drives)."""
+
+    def __init__(self, ctrl, clock, sub):
+        self.ctrl, self.clock, self.sub = ctrl, clock, sub
+        self.ticks = 0
+        self.tick_s = 0.0
+        self.worker_s = [0.0]
+
+    def _time_drivers(self):
+        for h in self.ctrl.workers.values():
+            d = h.driver
+            if d is not None and not getattr(d, "_timed", False):
+                inner, acc = d.tick, self.worker_s
+
+                def tick(inner=inner, acc=acc):
+                    t0 = time.perf_counter()
+                    try:
+                        inner()
+                    finally:
+                        acc[0] += time.perf_counter() - t0
+                d.tick, d._timed = tick, True
+
+    def _tick(self):
+        self._time_drivers()
+        t0 = time.perf_counter()
+        self.ctrl.tick()
+        self.tick_s += time.perf_counter() - t0
+        self.ticks += 1
+
+    def _waiting_on_sub(self):
+        s = self.sub
+        return (s.routable and not s.endpoint.closed
+                and s.last_heartbeat < self.clock())
+
+    def run(self, on_tick=None, max_ticks=20_000):
+        t_start = time.perf_counter()
+        while self.ctrl.has_pending():
+            self.clock.advance(1.0)
+            self._tick()
+            t_wait = time.perf_counter()
+            while self._waiting_on_sub():
+                time.sleep(0.0005)
+                self._tick()
+                if time.perf_counter() - t_wait > SUBPROCESS_SILENCE_S:
+                    raise AssertionError("the subprocess worker stayed "
+                                         "silent for 120 s")
+            if on_tick is not None:
+                on_tick()
+            if self.ticks > max_ticks:
+                raise AssertionError(f"the fleet did not drain in "
+                                     f"{max_ticks} ticks")
+        return time.perf_counter() - t_start
+
+    def host_ms_per_tick(self):
+        return (self.tick_s - self.worker_s[0]) / max(self.ticks, 1) * 1e3
+
+
+def _check_wave(ctrl, rid0, single, what):
+    """Every request of the wave from ``rid0`` completed, each stream the
+    single engine's; returns the tokens generated."""
+    done = {r.rid - rid0: r for r in ctrl.completed.values()
+            if 0 <= r.rid - rid0 < 100 and r.done}
+    if sorted(done) != sorted(single):
+        raise AssertionError(f"{what}: lost requests "
+                             f"{sorted(set(single) - set(done))}")
+    if {i: list(r.tokens) for i, r in done.items()} != single:
+        raise AssertionError(f"{what}: fleet streams differ from the "
+                             f"single engine's")
+    return sum(r.new_tokens for r in done.values())
+
+
+def _fabric_prepare(cfg, config, ckpt, device):
+    """Prepare and calibrate once, serve phase 17's wave, save the
+    serve-ready checkpoint. Returns (numbers, the saved engine's
+    streams, its act scales)."""
+    from repro_torch.fabric import save_engine_checkpoint
+    from repro_torch.fabric.smoke import _engine_streams
+    from repro_torch.layers.mplinear import count_weight_quant
+    from repro_torch.models import registry
+    from repro_torch.quant import calibrate
+    from repro_torch.serving import ServingEngine
+    calls = []
+    real = calibrate.calibrate_act_scales
+
+    def counted(*a, **k):
+        calls.append(1)
+        return real(*a, **k)
+    calibrate.calibrate_act_scales = counted
+    try:
+        t0 = time.perf_counter()
+        api = registry.build(cfg)
+        params = registry.init_params(cfg, seed=0, device=device)
+        with count_weight_quant() as wq:
+            eng = ServingEngine(cfg, api, params, config=config,
+                                device=device)
+        del params
+        torch.cuda.synchronize()
+        prepare_s = time.perf_counter() - t0
+    finally:
+        calibrate.calibrate_act_scales = real
+    if not wq[0] or len(calls) != 1:
+        raise AssertionError(f"the fresh engine did {wq[0]} weight "
+                             f"quantizations and {len(calls)} "
+                             f"calibrations")
+    saved = _engine_streams(eng, _wave(cfg, 0))
+    t0 = time.perf_counter()
+    save_engine_checkpoint(eng, ckpt)
+    save_s = time.perf_counter() - t0
+    scales = dict(eng.act_scales)
+    del eng
+    _free()
+    return ({"prepare_calibrate_s": prepare_s, "save_s": save_s,
+             "weight_quant_fresh": wq[0], "calibrations_fresh": len(calls)},
+            saved, scales)
+
+
+def _fabric_rebuild(cfg, ckpt, saved, scales, device):
+    """``build_engine`` from the checkpoint: no weight quantization, no
+    calibration, the saved engine's scales and streams. Returns
+    (numbers, the single engine's streams of phase 17's wave and of the
+    chaos workload, its measured stats)."""
+    from repro_torch.fabric import build_engine
+    from repro_torch.fabric.smoke import _engine_streams, _make_requests
+    from repro_torch.layers.mplinear import count_weight_quant
+    from repro_torch.quant import calibrate
+    calls = []
+    real = calibrate.calibrate_act_scales
+    calibrate.calibrate_act_scales = lambda *a, **k: calls.append(1)
+    try:
+        t0 = time.perf_counter()
+        with count_weight_quant() as wq:
+            restored = build_engine(ckpt, device=device)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+    finally:
+        calibrate.calibrate_act_scales = real
+    numbers = {"restore_s": restore_s, "weight_quant_restored": wq[0],
+               "calibrations_restored": len(calls),
+               "weight_quant_trace": restored.weight_quant_trace_count(),
+               "act_quant_trace": restored.act_quant_trace_count()}
+    if wq[0] or calls or numbers["weight_quant_trace"] \
+            or numbers["act_quant_trace"]:
+        raise AssertionError(f"restore did rework: {numbers}")
+    if restored.act_scales != scales:
+        raise AssertionError("the restored engine lost its act scales")
+    single = _engine_streams(restored, _wave(cfg, 0))
+    if single != saved:
+        raise AssertionError("the restored engine serves other streams "
+                             "than the saved one")
+    chaos_ref = _engine_streams(restored, _make_requests(cfg, 8, 12, 0))
+    stats = restored.stats.snapshot()
+    del restored
+    _free()
+    return numbers, single, chaos_ref, stats
+
+
+class _SubprocessBoot:
+    """``spawn_subprocess_worker`` in a thread: the child (``--register
+    --resume``) imports torch, makes its CUDA context and restores the
+    checkpoint the RegisterAck names while this process rebuilds and
+    builds its own engines. Nothing else touches the controller until
+    ``join``."""
+
+    def __init__(self, ctrl, device):
+        import threading
+        from repro_torch.fabric import spawn_subprocess_worker
+        self.handle, self.error, self.seconds = None, None, None
+
+        def run():
+            t0 = time.perf_counter()
+            try:
+                self.handle = spawn_subprocess_worker(
+                    ctrl, name="worker-proc", register=True,
+                    resumable=True, listener=ctrl.listener, timeout=300.0,
+                    device=device)
+            except BaseException as e:       # re-raised by join
+                self.error = e
+            self.seconds = time.perf_counter() - t0
+        self._thread = threading.Thread(target=run, daemon=True)
+        self._thread.start()
+
+    def join(self):
+        self._thread.join(timeout=360.0)
+        if self._thread.is_alive():
+            raise AssertionError("the subprocess worker never announced")
+        if self.error is not None:
+            raise self.error
+        return self.handle
+
+
+def _attach_local(ctrl, name, engine):
+    """``spawn_local_worker`` on an engine already built (with the
+    controller's clock)."""
+    from repro_torch.fabric import FabricWorker, LocalWorkerDriver, local_pair
+    ctrl_ep, worker_ep = local_pair()
+    worker = FabricWorker(name, engine, worker_ep, clock=ctrl.clock)
+    worker.announce()
+    return ctrl.add_worker(ctrl_ep, driver=LocalWorkerDriver(worker),
+                           name=name)
+
+
+def _fabric_fleet(ctrl, clock, sub, cfg, single):
+    """Two in-process workers and the TCP subprocess worker behind one
+    controller on a ManualClock: a first and a warm wave, then a wave in
+    which an in-process worker dies silently mid-flight (heartbeat
+    timeout), then one in which the subprocess is killed mid-flight."""
+    from repro_torch.runtime.fault_tolerance import fail_at_step
+    numbers = {}
+    drive = _FleetDriver(ctrl, clock, sub)
+    for wave, rid0 in (("first", 0), ("warm", 100)):
+        reqs = _wave(cfg, rid0)
+        for r in reqs:
+            ctrl.submit(r)
+        torch.cuda.synchronize()
+        ticks0 = drive.ticks
+        wall = drive.run()
+        new = _check_wave(ctrl, rid0, single, f"fleet {wave} wave")
+        numbers[wave] = {"wall_s": wall, "new_tokens": new,
+                         "tok_per_s": new / wall,
+                         "ticks": drive.ticks - ticks0,
+                         "routed": ctrl.routing_counters()}
+    if ctrl.failures or not all(ctrl.routing_counters().values()):
+        raise AssertionError(f"fleet: failures {ctrl.failures}, "
+                             f"routed {ctrl.routing_counters()}")
+    report = ctrl.routing_report()
+    if report["cost_correction"] != "online" or not all(
+            r["measured"]["transported"]
+            and r["measured"]["tok_per_s"] is not None
+            for r in report["replicas"].values()):
+        raise AssertionError(f"fleet routing did not run on transported "
+                             f"stats: {report}")
+    numbers["routing"] = {n: {"tok_per_s": r["measured"]["tok_per_s"],
+                              "effective_cost": r["effective_cost"]}
+                          for n, r in report["replicas"].items()}
+    numbers["host_ms_per_tick"] = drive.host_ms_per_tick()
+
+    def streamed(handle):
+        return any(q.tokens is not None and len(q.tokens) > len(q.prompt)
+                   for q in handle.replica.in_flight.values())
+
+    # kill worker-b mid-flight: silent, its heartbeats stop
+    hb, state = ctrl.workers["worker-b"], {}
+
+    def arm_b():
+        worker = hb.driver.worker
+        if "armed" not in state and streamed(hb):
+            worker.failure_hook = fail_at_step(worker.tick_count)
+            state["armed"] = ctrl.ticks
+        if "killed" not in state and hb.driver.dead:
+            state["killed"] = time.perf_counter()
+            state["held"] = len(hb.replica.in_flight)
+    numbers["kill_in_process"] = _kill_wave(ctrl, drive, cfg, 200, single,
+                                            arm_b, state, "worker-b")
+
+    # kill the subprocess mid-flight: its socket closes
+    state = {}
+
+    def kill_proc():
+        if "killed" not in state and streamed(sub):
+            sub.process.kill()
+            sub.process.wait()
+            state["killed"] = time.perf_counter()
+            state["armed"] = ctrl.ticks
+            state["held"] = len(sub.replica.in_flight)
+    numbers["kill_subprocess"] = _kill_wave(ctrl, drive, cfg, 300, single,
+                                            kill_proc, state, "worker-proc")
+    numbers["kill_subprocess"]["exit_code"] = sub.process.returncode
+    alive = [h.name for h in ctrl.workers.values() if h.alive]
+    if alive != ["worker-a"] or ctrl.failures != ["worker-b",
+                                                  "worker-proc"]:
+        raise AssertionError(f"after the kills: alive {alive}, failures "
+                             f"{ctrl.failures}")
+    numbers["report"] = {k: ctrl.report()[k] for k in (
+        "ticks", "failures", "suspects", "resumed", "requeued",
+        "completed")}
+    return numbers
+
+
+def _kill_wave(ctrl, drive, cfg, rid0, single, on_tick, state, name):
+    requeued0 = ctrl.scheduler.requeued
+    reqs = _wave(cfg, rid0)
+    for r in reqs:
+        ctrl.submit(r)
+    ticks0 = drive.ticks
+    wall = drive.run(on_tick=on_tick)
+    t_end = time.perf_counter()
+    _check_wave(ctrl, rid0, single, f"kill {name}")
+    requeued = ctrl.scheduler.requeued - requeued0
+    if "killed" not in state or requeued <= 0 or name not in ctrl.failures:
+        raise AssertionError(f"kill {name}: {state}, requeued {requeued}, "
+                             f"failures {ctrl.failures}")
+    return {"wall_s": wall, "ticks": drive.ticks - ticks0,
+            "killed_at_tick": state["armed"], "requeued": requeued,
+            "lost": 0, "held_at_kill": state["held"],
+            "kill_to_last_completion_s": t_end - state["killed"]}
+
+
+def phase_fabric(smi, cfg_full, device="cuda"):
+    """The serving fabric at full width (see the module docstring,
+    phase 17)."""
+    from repro_torch.fabric import Controller, ManualClock, build_engine
+    from repro_torch.fabric import chaos_smoke
+    from repro_torch.fabric.smoke import _make_requests
+    from repro_torch.kernels import ops
+    from repro_torch.serving import EngineConfig
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(cfg_full, precision_policy="int4_serving")
+    config = EngineConfig(batch_slots=FABRIC_SLOTS, cache_len=256,
+                          prefill_chunk=32, decode_block=4,
+                          act_calibration="auto", cost_correction="online",
+                          fused_executors="on")
+    step_want = {"fused_dequant_mm": 7 * cfg.n_layers}
+    parts = {}
+    ops.reset_launch_counts()
+    with tempfile.TemporaryDirectory() as d:
+        ckpt = os.path.join(d, "ckpt")
+        restore, saved, scales = _fabric_prepare(cfg, config, ckpt, device)
+        parts["prepare_save_s"] = time.perf_counter() - t_phase
+        clock = ManualClock()
+        ctrl = Controller(heartbeat_timeout=4.0, clock=clock,
+                          checkpoint_dir=ckpt)
+        ctrl.listen("127.0.0.1", 0)
+        try:
+            t0 = time.perf_counter()
+            boot = _SubprocessBoot(ctrl, device)
+            rebuilt, single, chaos_ref, stats = _fabric_rebuild(
+                cfg, ckpt, saved, scales, device)
+            restore.update(rebuilt)
+            parts["rebuild_s"] = time.perf_counter() - t0
+            codec = _codec_us(stats)
+            t1 = time.perf_counter()
+            engines = [build_engine(ckpt, clock=clock, device=device)
+                       for _ in range(2)]
+            local_s = time.perf_counter() - t1
+            sub = boot.join()
+            parts["workers_up_s"] = time.perf_counter() - t0
+            for name, eng in zip(("worker-a", "worker-b"), engines):
+                _attach_local(ctrl, name, eng)
+            t0 = time.perf_counter()
+            fleet = _fabric_fleet(ctrl, clock, sub, cfg, single)
+            fleet["subprocess_up_s"] = boot.seconds
+            fleet["local_engines_s"] = local_s
+            parts["fleet_and_kills_s"] = time.perf_counter() - t0
+            step = _step_launches(engines[0], step_want)
+        finally:
+            ctrl.shutdown()
+        del engines
+        _free()
+        t0 = time.perf_counter()
+        chaos = chaos_smoke.check_contract(
+            ckpt, lambda: _make_requests(cfg, 8, 12, 0), chaos_ref, 0, 3,
+            device)
+        parts["chaos_s"] = time.perf_counter() - t0
+    _free()
+    launches = {k: v for k, v in ops.launch_counts().items() if v}
+    if set(launches) != {"fused_dequant_mm"}:
+        raise AssertionError(f"the fabric launched {launches}")
+    warm3 = REPORT["phases"].get("3", {}).get("runs", {}).get(
+        "int4_block4_warm", {}).get("tok_per_s")
+    log(17, card=smi, parts_s=parts, restore=restore, codec=codec,
+        fleet=fleet, fleet_warm_tok_per_s=fleet["warm"]["tok_per_s"],
+        phase3_warm_tok_per_s=warm3,
+        fleet_vs_phase3_warm=(fleet["warm"]["tok_per_s"] / warm3
+                              if warm3 else None),
+        worker_decode_step_launches=step, chaos=chaos,
+        launches=launches, phase_s=time.perf_counter() - t_phase)
+    return launches
+
+
 # ---------------------------------------------------------------- main
 
 KERNELS = {
@@ -3798,6 +4240,7 @@ def main():
         launches14 = phase_serving_smoke(smi, trace)
         launches15 = phase_studies(smi, trace)
     launches16 = phase_planner(smi)
+    launches17 = phase_fabric(smi, get_config("qwen2-0.5b"))
 
     main_launches = {
         "fused_dequant_mm": launches3["fused_dequant_mm"]
@@ -3805,7 +4248,8 @@ def main():
         + launches9["fused_dequant_mm"]
         + sum(n["fused_dequant_mm"] for n in launches_families)
         + launches13["fused_dequant_mm"] + launches14["fused_dequant_mm"]
-        + launches15["fused_dequant_mm"] + launches16["fused_dequant_mm"],
+        + launches15["fused_dequant_mm"] + launches16["fused_dequant_mm"]
+        + launches17["fused_dequant_mm"],
         "fused_qmm": launches4["fidelity_int8"]["fused_qmm"]
         + launches4["int4_exact"]["fused_qmm"] + launches14["fused_qmm"],
         "qmm": launches4["fidelity_int8"]["qmm"] + launches14["qmm"],

@@ -1,14 +1,22 @@
-"""The subset of MessagePack a checkpoint manifest uses, in pure Python.
+"""The subset of MessagePack the port's manifests and fabric messages
+use, in pure Python.
 
 ``packb`` writes the bytes ``msgpack.packb`` writes with its defaults
 (the shortest int, str, bin, array and map forms; float as float64; str
-as UTF-8 with the str8 form; tuples as arrays), and ``unpackb`` reads
-them back as ``msgpack.unpackb`` does with its defaults (arrays as
-lists, str keys only). Maps, arrays, str, bytes, int, float, bool and
-None are supported; anything else raises ``TypeError`` on pack and
-``ValueError`` on unpack. The port keeps its own codec so that reading
-and writing the reference's ``manifest.msgpack`` needs no package
-beyond the standard library.
+as UTF-8 with the str8 form; tuples as arrays). Like msgpack's default
+``strict_types=False`` it packs subclasses of int, float, str, list,
+tuple and dict as their base type (``np.float64`` is a float; an
+``IntEnum`` member an int). ``unpackb`` reads them back as
+``msgpack.unpackb`` does with its defaults (arrays as lists, str keys
+only); ``strict_map_key=False`` also reads int and other hashable map
+keys, as the fabric's wire needs. Maps, arrays, str, bytes, int, float,
+bool and None are supported; anything else raises ``TypeError`` on
+pack. Every malformed input raises ``ValueError`` on unpack: truncated
+data, unknown type bytes, a key of the wrong type or an unhashable one,
+nesting deeper than msgpack's 1024 containers, extra bytes. The port
+keeps its own codec so that reading and writing the reference's
+``manifest.msgpack`` and its fabric frames needs no package beyond the
+standard library.
 """
 from __future__ import annotations
 
@@ -61,12 +69,12 @@ def _pack(obj: Any, out: List[bytes]):
         out.append(b"\xc3")
     elif obj is False:
         out.append(b"\xc2")
-    elif type(obj) is int:
-        _int(obj, out)
-    elif type(obj) is float:
-        out.append(b"\xcb" + struct.pack(">d", obj))
-    elif type(obj) is str:
-        data = obj.encode("utf-8")
+    elif isinstance(obj, int):
+        _int(int(obj), out)
+    elif isinstance(obj, float):
+        out.append(b"\xcb" + struct.pack(">d", float(obj)))
+    elif isinstance(obj, str):
+        data = str.encode(obj, "utf-8")
         _header(len(data), 0xA0, 32, _STR, out)
         out.append(data)
     elif isinstance(obj, (bytes, bytearray)):
@@ -104,60 +112,102 @@ _LENGTH = {  # prefix -> (kind, struct format of the length, its size)
 }
 
 
+# msgpack's unpacker holds at most this many open containers
+MAX_DEPTH = 1024
+# an open map's slot before its key is read
+_NO_KEY = object()
+
+
 def _take(buf: bytes, pos: int, n: int) -> Tuple[bytes, int]:
     if pos + n > len(buf):
         raise ValueError("truncated MessagePack data")
     return buf[pos:pos + n], pos + n
 
 
-def _unpack(buf: bytes, pos: int) -> Tuple[Any, int]:
+def _head(buf: bytes, pos: int) -> Tuple[str, Any, int]:
+    """One object's header at ``pos``: ("value", the object, next pos)
+    for a scalar, ("array"/"map", its length, next pos) for a
+    container."""
     head, pos = _take(buf, pos, 1)
     b = head[0]
     if b <= 0x7F:
-        return b, pos
+        return "value", b, pos
     if b >= 0xE0:
-        return b - 0x100, pos
+        return "value", b - 0x100, pos
     if 0xA0 <= b <= 0xBF:
         kind, n = "str", b & 0x1F
     elif 0x90 <= b <= 0x9F:
-        kind, n = "array", b & 0x0F
+        return "array", b & 0x0F, pos
     elif 0x80 <= b <= 0x8F:
-        kind, n = "map", b & 0x0F
+        return "map", b & 0x0F, pos
     elif b == 0xC0:
-        return None, pos
+        return "value", None, pos
     elif b in (0xC2, 0xC3):
-        return b == 0xC3, pos
+        return "value", b == 0xC3, pos
     elif b in _FIXED:
         fmt, size = _FIXED[b]
         raw, pos = _take(buf, pos, size)
-        return struct.unpack(fmt, raw)[0], pos
+        return "value", struct.unpack(fmt, raw)[0], pos
     elif b in _LENGTH:
         kind, fmt, size = _LENGTH[b]
         raw, pos = _take(buf, pos, size)
         n = struct.unpack(fmt, raw)[0]
+        if kind in ("array", "map"):
+            return kind, n, pos
     else:
         raise ValueError(f"unsupported MessagePack type byte 0x{b:02x}")
-    if kind in ("str", "bin"):
-        raw, pos = _take(buf, pos, n)
-        return (raw.decode("utf-8") if kind == "str" else raw), pos
-    if kind == "array":
-        items = []
-        for _ in range(n):
-            v, pos = _unpack(buf, pos)
-            items.append(v)
-        return items, pos
-    out = {}
-    for _ in range(n):
-        k, pos = _unpack(buf, pos)
-        if not isinstance(k, str):
-            raise ValueError(f"map key {k!r}: only str keys are read")
-        out[k], pos = _unpack(buf, pos)
-    return out, pos
+    raw, pos = _take(buf, pos, n)
+    return "value", (raw.decode("utf-8") if kind == "str" else raw), pos
 
 
-def unpackb(buf: bytes) -> Any:
-    obj, pos = _unpack(bytes(buf), 0)
-    if pos != len(buf):
-        raise ValueError(f"{len(buf) - pos} bytes of extra data after the "
-                         f"MessagePack object")
-    return obj
+def _check_key(key: Any, strict_map_key: bool) -> None:
+    if strict_map_key:
+        if not isinstance(key, str):
+            raise ValueError(f"map key {key!r}: only str keys are read")
+        return
+    try:
+        hash(key)
+    except TypeError:
+        raise ValueError(f"map key of type {type(key).__name__} is "
+                         f"unhashable") from None
+
+
+def unpackb(buf: bytes, strict_map_key: bool = True) -> Any:
+    """Read one MessagePack object that spans all of ``buf``; without
+    ``strict_map_key`` map keys may be any hashable object."""
+    buf = bytes(buf)
+    # open containers: [list or dict, items still to read, key or _NO_KEY]
+    stack: List[list] = []
+    pos = 0
+    while True:
+        kind, obj, pos = _head(buf, pos)
+        if kind != "value":
+            if len(stack) >= MAX_DEPTH:
+                raise ValueError(f"MessagePack data nests deeper than "
+                                 f"{MAX_DEPTH} containers")
+            if obj:
+                stack.append([[] if kind == "array" else {}, obj, _NO_KEY])
+                continue
+            obj = [] if kind == "array" else {}
+        # place the finished object; close every container it completes
+        while stack:
+            top = stack[-1]
+            into = top[0]
+            if isinstance(into, list):
+                into.append(obj)
+            elif top[2] is _NO_KEY:
+                _check_key(obj, strict_map_key)
+                top[2] = obj
+                break                      # the value comes next
+            else:
+                into[top[2]] = obj
+                top[2] = _NO_KEY
+            top[1] -= 1
+            if top[1]:
+                break
+            obj = stack.pop()[0]
+        else:
+            if pos != len(buf):
+                raise ValueError(f"{len(buf) - pos} bytes of extra data "
+                                 f"after the MessagePack object")
+            return obj

@@ -49,10 +49,24 @@ class AdmissionScheduler:
     def __post_init__(self):
         self._waiting: List[Tuple[int, Request]] = []
         self._seq = 0              # FIFO tiebreaker within a class
+        # requeued entries draw seqs from a far-negative counter: all
+        # outrank normal submits, FIFO among themselves
+        self._front = -(1 << 31)
         self.depth_highwater = 0   # deepest the queue has ever been
+        self.requeued = 0          # failure-recovery re-entries
 
     def __len__(self) -> int:
         return len(self._waiting)
+
+    @property
+    def pending(self) -> List[Request]:
+        return [r for _, r in self._waiting]
+
+    def pending_new_tokens(self) -> int:
+        """Upper bound on decode tokens the waiting line still owes —
+        what a backpressure retry-after estimate divides by fleet
+        throughput."""
+        return sum(r.budget for _, r in self._waiting)
 
     def submit(self, req: Request, now: Optional[float] = None) -> None:
         if len(self._waiting) >= self.max_queue:
@@ -62,6 +76,25 @@ class AdmissionScheduler:
             req.submit_time = now
         self._waiting.append((self._seq, req))
         self._seq += 1
+        if len(self._waiting) > self.depth_highwater:
+            self.depth_highwater = len(self._waiting)
+
+    def requeue(self, req: Request) -> None:
+        """Failure-recovery re-entry: put back a request that was
+        already admitted somewhere that died.
+
+        Differs from ``submit`` in exactly the ways recovery demands:
+        the bounded-queue check is bypassed (recovery must never drop
+        admitted work — the queue bound protects against NEW load, and
+        a requeue adds back work the fleet already accepted), the entry
+        goes to the FRONT of its priority class (increasing negative
+        seq: FIFO among requeued, ahead of every normal submit), and
+        ``submit_time`` is preserved so max-wait promotion counts from
+        the original submission.
+        """
+        self._waiting.append((self._front, req))
+        self._front += 1
+        self.requeued += 1
         if len(self._waiting) > self.depth_highwater:
             self.depth_highwater = len(self._waiting)
 

@@ -1480,6 +1480,19 @@ def test_serving_smoke_on_the_card(cuda, tmp_path):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("command", ["smoke", "chaos"])
+def test_fabric_contracts_on_the_card(cuda, command, capsys):
+    """``python -m repro_torch.fabric smoke`` and ``chaos`` on the card
+    (their default device): exit 0, every contract of the reference's
+    held, and the fabric's workers served through ``fused_dequant_mm``."""
+    from repro_torch.fabric.__main__ import main
+    before = tops.launch_counts()["fused_dequant_mm"]
+    assert main([command]) == 0
+    assert "PASS on cuda" in capsys.readouterr().out
+    assert tops.launch_counts()["fused_dequant_mm"] > before
+
+
+@pytest.mark.cuda
 def test_fig3_rows_on_the_card_equal_the_cpus(cuda):
     """Fig. 3's whole grid through ``core.ipu`` on the card: every row
     equal to the CPU's."""

@@ -21,6 +21,13 @@ fallback, and no compiler needed to import it.
   policy paths that its projection groups cover.
 * Without ``nvcc`` the kernel loader raises a clear error; it never
   hands back a plain version.
+* The fabric (transport, chaos, worker, controller, the smoke and chaos
+  contracts and their command line), the fault-tolerant runtime, the
+  scheduler and the MessagePack codec import, and the fabric's smoke and
+  chaos contracts run on the CPU, with ``jax``, ``repro`` and
+  ``msgpack`` blocked (``sys.modules[name] = None``); ``python -m
+  repro_torch.fabric worker|smoke|chaos`` without CUDA and without
+  ``--device cpu`` exits non-zero with ``resolve_device``'s error.
 """
 import ast
 import pathlib
@@ -405,3 +412,64 @@ def test_planner_raises_without_cuda_unless_asked_for_cpu(no_cuda, tmp_path,
     with pytest.raises(RuntimeError, match="device='cpu'"):
         cli.plan_act_scales(plan)
     assert cli.plan_act_scales(plan, device="cpu")
+
+
+FABRIC_MODULES = (
+    "repro_torch.fabric", "repro_torch.fabric.transport",
+    "repro_torch.fabric.chaos", "repro_torch.fabric.worker",
+    "repro_torch.fabric.controller", "repro_torch.fabric.smoke",
+    "repro_torch.fabric.chaos_smoke", "repro_torch.fabric.__main__",
+    "repro_torch.runtime", "repro_torch.runtime.fault_tolerance",
+    "repro_torch.serving.scheduler", "repro_torch.checkpoint._msgpack")
+
+
+def test_fabric_modules_stand_alone():
+    """The fabric, the runtime, the scheduler and the codec, each
+    imported first in a fresh interpreter, as above."""
+    _imports_alone(FABRIC_MODULES)
+
+
+def test_fabric_runs_with_jax_repro_and_msgpack_blocked():
+    """With ``jax``, ``jaxlib``, ``repro`` and ``msgpack`` made
+    unimportable, the fabric's modules import, a message crosses the wire
+    and ``python -m repro_torch.fabric smoke|chaos --device cpu`` keep
+    their contracts."""
+    code = (
+        "import sys\n"
+        f"for name in {FORBIDDEN!r}:\n"
+        "    sys.modules[name] = None\n"
+        "import importlib\n"
+        f"for name in {FABRIC_MODULES!r}:\n"
+        "    importlib.import_module(name)\n"
+        "from repro_torch.fabric import transport as tp\n"
+        "msg = tp.Resume(name='w', progress={3: 5})\n"
+        "assert tp.decode_message(tp.encode_message(msg)) == msg\n"
+        "from repro_torch.fabric.__main__ import main\n"
+        "assert main(['smoke', '--device', 'cpu']) == 0\n"
+        "assert main(['chaos', '--device', 'cpu']) == 0\n"
+        "print('ok')\n")
+    env = {"PYTHONPATH": str(PKG.parent), "PATH": "/usr/bin:/bin",
+           "CUDA_VISIBLE_DEVICES": ""}
+    res = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=600)
+    assert res.returncode == 0, res.stderr
+    assert "fabric-smoke: PASS on cpu" in res.stdout
+    assert "chaos-smoke: PASS on cpu" in res.stdout
+    assert res.stdout.strip().endswith("ok")
+
+
+@pytest.mark.parametrize("argv", (
+    ["worker", "--ckpt", "missing", "--connect", "127.0.0.1:9"],
+    ["smoke"], ["chaos"]), ids=("worker", "smoke", "chaos"))
+def test_fabric_cli_needs_cuda_unless_asked_for_cpu(argv):
+    """Without a CUDA device (none visible) and without ``--device
+    cpu``, each command exits non-zero on ``resolve_device``'s error
+    before it serves or dials anything."""
+    env = {"PYTHONPATH": str(PKG.parent), "PATH": "/usr/bin:/bin",
+           "CUDA_VISIBLE_DEVICES": ""}
+    res = subprocess.run([sys.executable, "-m", "repro_torch.fabric",
+                          *argv], env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert res.returncode != 0
+    assert "CUDA is not available" in res.stderr
+    assert "PASS" not in res.stdout
