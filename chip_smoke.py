@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--report PATH] [--profile]
 
-Drives the port (``src/repro_torch``) on the card, in seventeen phases,
+Drives the port (``src/repro_torch``) on the card, in eighteen phases,
 each printing one line that starts with ``phase``:
 
 1. device and build: the card's name and power limit (nvidia-smi), and
@@ -215,6 +215,33 @@ each printing one line that starts with ``phase``:
    single-engine tok/s, the controller's host ms per tick, the codec's
    microseconds per StatsSnapshot and Heartbeat encode and decode, and
    seconds from each kill to the last completion.
+18. training on the card, which launches none of the five kernels
+   (asserted: every counter stays 0 through the phase): (a) qwen2-0.5b
+   at full width (weights from seed 0) through the trainer CLI's code
+   path (``repro_torch.launch.train.run``: FaultTolerantLoop, a
+   checkpoint at the last step), ``bf16``, batch 8 of 128 tokens of
+   the Markov stream, 30 steps at ``--lr 3e-3``: every loss finite,
+   every step's ``finite`` 1, the mean of the last five losses below
+   the first five's; the median step ms over steps 2-29 (the card
+   synchronized around each), tokens/s, the first step's seconds,
+   ``max_memory_allocated``, the losses beside log(151936) and the
+   chain's log 16, and the last step under ``torch.profiler`` (device
+   busy ms, the top eight kernels, the idle share against the median
+   step); (b) ``repro_torch.examples.train_lm`` at its
+   defaults (it asserts the last loss below the first; whether it
+   reached 0.8 of the first is printed); (c) one step of each reduced
+   family (qwen2, rwkv6, recurrentgemma, mixtral, internvl2,
+   seamless-m4t; numpy-drawn weights and batch) on the card and on the
+   CPU under the trainer's numerics: loss, every gradient leaf and the
+   parameters after the step within the family's bounds
+   (``TRAIN_CARD_VS_CPU``, set from this comparison's own readings);
+   (d) the CLI on reduced qwen2-0.5b killed by ``fail_at_step`` and
+   resumed: losses and final state bit-equal to an uninterrupted run;
+   (e) full-width qwen2-0.5b steps from one state under the trainer's
+   numerics, without and with torch's deterministic algorithms, in
+   five pairs of alternating order: the median and quartiles of each
+   mode's step ms, and whether the runs are bit-equal (the trainer's,
+   without the mode, must repeat and give the mode's bits).
 
 Phases 8-13 assert that f32 matmuls do not run on TF32 (a TF32
 router moves expert selection); each phase frees its model before the
@@ -232,6 +259,7 @@ graph and run eagerly, under ``int4_serving`` (phase 3),
 replayed decode step of seamless-m4t-medium under each policy.
 """
 import argparse
+import contextlib
 import dataclasses
 import hashlib
 import json
@@ -2432,10 +2460,10 @@ def _moe_layer_card_vs_cpu(cfg, prepared):
     from repro_torch.convert import tree_to
     from repro_torch.core.policy import get_policy
     from repro_torch.layers import moe
-    from repro_torch.models.lm import layer_tree, moe_cfg
+    from repro_torch.models.lm import moe_cfg, unstack
     mcfg = moe_cfg(cfg)
     policy = get_policy(cfg.precision_policy)
-    card = layer_tree(prepared["blocks"]["b0"]["moe"], 0)
+    card = unstack(prepared["blocks"]["b0"]["moe"])[0]
     cpu = tree_to(card, "cpu")
     rng = np.random.default_rng(8)
     out = {}
@@ -2483,7 +2511,7 @@ def _decode_step_ms(cfg, api, prepared, batch):
     from repro_torch.layers import moe
     from repro_torch.layers.mplinear import executor_variant
     from repro_torch.models import lm
-    from repro_torch.models.lm import layer_tree
+    from repro_torch.models.lm import unstack
     caches = api.init_cache(batch, 256)
     tok = torch.zeros((batch, 1), dtype=torch.int32, device="cuda")
     pos = torch.full((batch,), 40, dtype=torch.int32, device="cuda")
@@ -2501,10 +2529,12 @@ def _decode_step_ms(cfg, api, prepared, batch):
         groups = cfg.n_layers // len(lm.group_kinds(cfg))
 
         def dequant():
+            layers = {n: unstack(stacks[n]["w"])
+                      for n in ("w_gate", "w_up", "w_down")}
             for i in range(groups):
                 for n in ("w_gate", "w_up", "w_down"):
-                    moe.expert_weights(layer_tree(stacks[n]["w"], i),
-                                       spec).to(torch.bfloat16)
+                    moe.expert_weights(layers[n][i], spec).to(
+                        torch.bfloat16)
 
         with torch.no_grad():
             out["expert_dequant_ms"] = graph_ms(dequant, reps=5)
@@ -2731,7 +2761,7 @@ def _first_layers_card_vs_cpu(cfg, api, prepared):
     from repro_torch.core.policy import get_policy
     from repro_torch.kernels import ops
     from repro_torch.models import griffin, rwkv
-    from repro_torch.models.lm import layer_tree
+    from repro_torch.models.lm import unstack
     from repro_torch.serving import graphs
     policy = get_policy(cfg.precision_policy)
     gen = torch.Generator(device="cuda")
@@ -2746,7 +2776,7 @@ def _first_layers_card_vs_cpu(cfg, api, prepared):
         return {"layer0": _card_vs_cpu(
             lambda t, st, dev: (rwkv._block(t, cfg, x.to(dev), st, policy,
                                             True), st),
-            layer_tree(prepared["blocks"], 0), state)}
+            unstack(prepared["blocks"])[0], state)}
     if cfg.family == "griffin":
         caches = api.init_cache(8, 256)["groups"]
         pos = torch.full((8,), 40, dtype=torch.int32, device="cuda")
@@ -2754,7 +2784,7 @@ def _first_layers_card_vs_cpu(cfg, api, prepared):
         trees, states, out = {}, {}, {}
         for i, kind in enumerate(pat):
             b, c = f"b{i}", caches[f"b{i}"]
-            trees[b] = layer_tree(prepared["blocks"][b], 0)
+            trees[b] = unstack(prepared["blocks"][b])[0]
             states[b] = type(c)(*(rnd(t[0]) if kind == "rec" else t[0]
                                   for t in c))
             taps = {}
@@ -2999,7 +3029,7 @@ def _encdec_card_vs_cpu(cfg, api, prepared, batch, logits, enc_out):
     from repro_torch.layers.attention import KVCache
     from repro_torch.layers.mplinear import executor_variant
     from repro_torch.models import encdec
-    from repro_torch.models.lm import layer_tree
+    from repro_torch.models.lm import unstack
     policy = get_policy(cfg.precision_policy)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(32)
@@ -3016,13 +3046,13 @@ def _encdec_card_vs_cpu(cfg, api, prepared, batch, logits, enc_out):
     out = {"enc_block0": _card_vs_cpu(
         lambda t, st, dev: (encdec.encode_block(
             t, cfg, x_enc.to(dev), positions(ENCDEC_FRAMES, dev), policy),
-            st), layer_tree(prepared["enc_blocks"], 0), ())}
+            st), unstack(prepared["enc_blocks"])[0], ())}
     c = api.init_cache(ENCDEC_ROWS, ENCDEC_CACHE)
     out["dec_block0"] = _card_vs_cpu(
         lambda t, st, dev: (encdec.decode_block(
             t, cfg, x_dec.to(dev), positions(ENCDEC_PROMPT, dev),
             enc.to(dev), "prefill", st, None, policy), st),
-        layer_tree(prepared["dec_blocks"], 0),
+        unstack(prepared["dec_blocks"])[0],
         KVCache(c.k[0], c.v[0], c.pos[0]))
     cpu_tree = tree_to(prepared, "cpu")
     t0 = time.perf_counter()
@@ -4173,6 +4203,353 @@ def phase_fabric(smi, cfg_full, device="cuda"):
     return launches
 
 
+# ------------------------------------------------------------- phase 18
+
+TRAIN_ARCH = "qwen2-0.5b"
+TRAIN_STEPS = 30
+# (e) steps a run, and pairs of runs without and with the trainer's
+# numerics
+TRAIN_DET_STEPS = 5
+TRAIN_DET_PAIRS = 5
+TRAIN_BATCH = 8
+TRAIN_SEQ = 128
+# ten times the trainer CLI's default: 30 steps sit inside the default
+# 100-step warmup, and at 3e-4 the loss moves 0.017 nats over them (an
+# H100 at 700 W), inside the batch-to-batch spread of +-0.05; at 3e-3
+# it falls 0.23
+TRAIN_LR = 3e-3
+# card against CPU, one step of each reduced family under the trainer's
+# numerics: (loss relative, the worst gradient leaf's relative L2, the
+# parameter tree after the step, relative L2), each a few times the
+# reading beside it (an H100 at 700 W). qwen2 and seamless multiply
+# only in f32 (``_dot_f32``) and agree to f32 summation order; the
+# others also multiply bf16 by bf16 (rwkv's token-shift mixing,
+# griffin's recurrence gates, the experts' einsums, the vision
+# projector), where the card and the CPU round differently. The same
+# table is in tests/test_torch_cuda.py.
+TRAIN_CARD_VS_CPU = {
+    "qwen2-0.5b": (1e-6, 1e-5, 1e-7),            # 7.3e-8 1.5e-7 5.0e-9
+    "rwkv6-1.6b": (1e-6, 2e-2, 1e-3),            # 0      2.1e-3 3.2e-5
+    "recurrentgemma-9b": (1e-6, 2e-2, 1e-3),     # 0      5.4e-3 9.6e-5
+    "mixtral-8x7b": (1e-6, 2e-2, 1e-3),          # 6.8e-8 4.3e-3 1.8e-4
+    "internvl2-1b": (1e-6, 2e-2, 1e-3),          # 7.4e-8 3.4e-3 1.1e-4
+    "seamless-m4t-medium": (1e-6, 1e-5, 1e-7),   # 6.7e-8 1.2e-7 3.4e-10
+}
+
+
+def _timed_steps(seconds, profiled):
+    """A ``wrap_step`` for ``launch.train.run``: each step's wall time,
+    the card synchronized before and after, into ``seconds``; the last
+    step also under ``torch.profiler``, its device time by kernel into
+    ``profiled``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def wrap(step):
+        def timed(state, batch):
+            last = len(seconds) == TRAIN_STEPS - 1
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if last:
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+                    out = step(state, batch)
+                    torch.cuda.synchronize()
+            else:
+                out = step(state, batch)
+                torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - t0)
+            if last:
+                kernels = [e for e in prof.key_averages()
+                           if e.device_type == DeviceType.CUDA]
+                kernels.sort(key=lambda e: -e.self_device_time_total)
+                profiled["busy_ms"] = sum(
+                    e.self_device_time_total for e in kernels) / 1e3
+                profiled["kernels"] = len(kernels)
+                profiled["top_ms"] = {
+                    e.key[:70]: e.self_device_time_total / 1e3
+                    for e in kernels[:8]}
+            return out
+        return timed
+    return wrap
+
+
+def _train_full_width(tmp):
+    """(a) qwen2-0.5b at full width through the trainer CLI's code path
+    (``launch.train.run``: FaultTolerantLoop, a checkpoint at the end)."""
+    from repro_torch.launch import train
+    seconds, profiled = [], {}
+    _free()
+    torch.cuda.reset_peak_memory_stats()
+    args = train.parse_args([
+        "--arch", TRAIN_ARCH, "--steps", str(TRAIN_STEPS),
+        "--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ),
+        "--policy", "bf16", "--lr", str(TRAIN_LR),
+        "--ckpt-every", str(TRAIN_STEPS),
+        "--ckpt-dir", os.path.join(tmp, "full"), "--device", "cuda"])
+    t0 = time.perf_counter()
+    r = train.run(args, wrap_step=_timed_steps(seconds, profiled))
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    losses = r.losses
+    finite = [h["finite"] for h in r.history]
+    if r.step != TRAIN_STEPS or len(losses) != TRAIN_STEPS:
+        raise AssertionError(f"trained {r.step} steps, {len(losses)} losses")
+    if not all(np.isfinite(losses)) or set(finite) != {1.0}:
+        raise AssertionError(f"losses {losses}, finite {finite}")
+    first, last = np.mean(losses[:5]), np.mean(losses[-5:])
+    if not last < first:
+        raise AssertionError(f"the loss did not fall: first 5 {first}, "
+                             f"last 5 {last}")
+    # steps 2-29: the first builds, the last runs under the profiler
+    step_ms = statistics.median(seconds[1:-1]) * 1e3
+    profiled["idle_share"] = 1 - profiled["busy_ms"] / step_ms
+    grad_norms = [h["grad_norm"] for h in r.history]
+    del r
+    _free()
+    return {"step_ms": step_ms,
+            "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / (step_ms / 1e3),
+            "first_step_s": seconds[0], "profiled_step_s": seconds[-1],
+            "last_step_profile": profiled, "steps_s": sum(seconds),
+            "run_s": wall, "checkpoint_and_loop_s": wall - sum(seconds),
+            "max_memory_allocated": peak, "losses": losses,
+            "first5_mean": first, "last5_mean": last,
+            "log_vocab": float(np.log(151936)),
+            "markov_entropy": float(np.log(16)),
+            "grad_norms": grad_norms}
+
+
+def _train_example(tmp):
+    """(b) ``repro_torch.examples.train_lm`` at its defaults on the card
+    (it asserts that the last loss is below the first)."""
+    import contextlib
+    import io
+    from repro_torch.examples import train_lm
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        losses = train_lm.main(["--device", "cuda", "--ckpt-dir",
+                                os.path.join(tmp, "example")])
+    return {"s": time.perf_counter() - t0, "first": losses[0],
+            "last": losses[-1], "steps": len(losses),
+            "reached_0.8_of_first": losses[-1] < 0.8 * losses[0],
+            "stdout": out.getvalue().strip().splitlines()}
+
+
+def _rel_l2(a, b):
+    a, b = a.double().cpu(), b.double().cpu()
+    return float(torch.linalg.vector_norm(a - b)
+                 / max(float(torch.linalg.vector_norm(b)), 1e-30))
+
+
+def _train_card_vs_cpu():
+    """(c) one step of each reduced family (numpy-drawn weights, a numpy
+    batch) on the card and on the CPU under the trainer's numerics: loss,
+    every gradient leaf and the parameters after the step."""
+    from repro_torch.configs import InputShape, reduced
+    from repro_torch.convert import tree_to
+    from repro_torch.launch import train
+    from repro_torch.models import registry
+    from repro_torch.optim.tree import tree_leaves
+    out = {}
+    for arch, bounds in TRAIN_CARD_VS_CPU.items():
+        cfg = reduced(arch)
+        api = registry.build(cfg)
+        tc = train.TrainConfig(adamw=train.AdamWConfig(lr=1e-3), warmup=1)
+        batch = registry.materialize_batch(
+            cfg, InputShape("train", 16, 2, "train"), seed=3, device="cpu")
+        params = api.init(0, "cpu", draws="numpy")
+        got = {}
+        for dev in ("cuda", "cpu"):
+            st = train.init_state(api, tree_to(params, dev))
+            st = st._replace(step=st.step + 1)       # lr past warmup
+            b = {k: v.to(dev) for k, v in batch.items()}
+            with train.train_numerics():
+                grads, loss, metrics = train.grad_step(api, tc, st, b)
+                new, m = train.apply_updates(api, tc, st, grads, loss,
+                                             metrics)
+            got[dev] = (float(loss), tree_leaves(grads),
+                        torch.cat([t.double().cpu().ravel()
+                                   for t in tree_leaves(new.params)]))
+        (lc, gc, pc), (lp, gp, pp) = got["cuda"], got["cpu"]
+        rel = {"loss": abs(lc - lp) / abs(lp),
+               "grad_worst": max(_rel_l2(a, b) for a, b in zip(gc, gp)),
+               "params": _rel_l2(pc, pp)}
+        if not all(r <= b for r, b in zip(rel.values(), bounds)):
+            raise AssertionError(f"{arch}: card vs CPU {rel}, bounds "
+                                 f"{bounds}")
+        out[arch] = rel
+    return out
+
+
+def _train_kill_resume(tmp):
+    """(d) the trainer CLI on the card (reduced qwen2-0.5b) killed by
+    ``fail_at_step`` and resumed: losses and final state bit-equal to an
+    uninterrupted run."""
+    from repro_torch.launch import train
+    from repro_torch.optim.tree import tree_leaves
+    from repro_torch.runtime.fault_tolerance import (WorkerFailure,
+                                                     fail_at_step)
+
+    def args(name):
+        return train.parse_args(["--arch", TRAIN_ARCH, "--reduced",
+                                 "--steps", "8", "--ckpt-every", "3",
+                                 "--ckpt-dir", os.path.join(tmp, name),
+                                 "--device", "cuda"])
+
+    whole = train.run(args("whole"))
+    try:
+        train.run(args("killed"), failure_hook=fail_at_step(5))
+        raise AssertionError("fail_at_step(5) did not kill the run")
+    except WorkerFailure:
+        pass
+    resumed = train.run(args("killed"))
+    equal = (resumed.losses == whole.losses[3:] and all(
+        torch.equal(a, b) for a, b in zip(tree_leaves(resumed.state),
+                                          tree_leaves(whole.state))))
+    if not equal or resumed.step != 8:
+        raise AssertionError(f"resumed {resumed.losses} against "
+                             f"{whole.losses[3:]}")
+    return {"bit_equal": equal,
+            "resumed_from_step": resumed.history[0]["step"],
+            "losses": whole.losses}
+
+
+@contextlib.contextmanager
+def _deterministic_mode():
+    """torch's deterministic algorithms, without the mode's NaN fill of
+    every new empty tensor (a guard against reading unwritten memory,
+    not a question of summation order), and ``CUBLAS_WORKSPACE_CONFIG``
+    set for the mode's cuBLAS check; all as they were after."""
+    import torch.utils.deterministic as det
+    prev = (torch.are_deterministic_algorithms_enabled(),
+            det.fill_uninitialized_memory,
+            os.environ.get("CUBLAS_WORKSPACE_CONFIG"))
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    torch.use_deterministic_algorithms(True)
+    det.fill_uninitialized_memory = False
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(prev[0])
+        det.fill_uninitialized_memory = prev[1]
+        if prev[2] is None:
+            os.environ.pop("CUBLAS_WORKSPACE_CONFIG", None)
+
+
+def _train_determinism():
+    """(e) Whether the trainer repeats a run bit for bit without torch's
+    deterministic algorithms, and what they would cost at full width:
+    qwen2-0.5b, ``bf16``, batch 8, seq 128, ``TRAIN_DET_STEPS`` + 1
+    steps from one state under the trainer's numerics, without the mode
+    and with it (``_deterministic_mode``), in ``TRAIN_DET_PAIRS`` pairs
+    whose order alternates. Per run the median step ms (its first step
+    left out); per mode the median and quartiles over its runs, and the
+    pairs in which the mode was the faster; whether every run of a mode,
+    and the first runs of the two modes, give bit-equal losses and final
+    states. The trainer's runs must repeat, and give the mode's bits."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticLMDataset
+    from repro_torch.launch import train
+    from repro_torch.models import registry
+    from repro_torch.optim.tree import tree_leaves
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH),
+                              precision_policy="bf16")
+    api = registry.build(cfg)
+    tc = train.TrainConfig(adamw=train.AdamWConfig(lr=TRAIN_LR),
+                           total_steps=TRAIN_STEPS)
+    ds = SyntheticLMDataset(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                                       global_batch=TRAIN_BATCH),
+                            device="cuda")
+    batches = [ds.batch(i) for i in range(TRAIN_DET_STEPS + 1)]
+    state0 = train.init_state(api, device="cuda")
+    ms, first = {False: [], True: []}, {}
+    equal = {"off_vs_itself": True, "on_vs_itself": True}
+    order = [(False, True) if i % 2 == 0 else (True, False)
+             for i in range(TRAIN_DET_PAIRS)]
+    for pair in order:
+        for det in pair:
+            mode = _deterministic_mode() if det else contextlib.nullcontext()
+            st, secs, losses = state0, [], []
+            with train.train_numerics(), mode:
+                for b in batches:
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    grads, loss, metrics = train.grad_step(api, tc, st, b)
+                    st, m = train.apply_updates(api, tc, st, grads, loss,
+                                                metrics)
+                    torch.cuda.synchronize()
+                    secs.append(time.perf_counter() - t0)
+                    losses.append(float(m["loss"]))
+                    del grads, loss, metrics, m
+            ms[det].append(statistics.median(secs[1:]) * 1e3)
+            run = (losses, tree_leaves(st))
+            if det not in first:
+                first[det] = run
+            else:
+                key = f"{'on' if det else 'off'}_vs_itself"
+                equal[key] = equal[key] and run[0] == first[det][0] and all(
+                    torch.equal(a, b) for a, b in zip(run[1],
+                                                      first[det][1]))
+            del st, run
+            _free()
+    equal["on_vs_off"] = (first[True][0] == first[False][0] and all(
+        torch.equal(a, b) for a, b in zip(first[True][1],
+                                          first[False][1])))
+    if not (equal["off_vs_itself"] and equal["on_vs_off"]):
+        raise AssertionError(f"the trainer did not repeat its bits, or "
+                             f"not the deterministic mode's: {equal}")
+
+    def spread(xs):
+        q = statistics.quantiles(xs, n=4)
+        return {"median": statistics.median(xs), "q1": q[0], "q3": q[2]}
+
+    out = {"pairs": TRAIN_DET_PAIRS, "step_ms_off": ms[False],
+           "step_ms_on": ms[True], "off": spread(ms[False]),
+           "on": spread(ms[True]),
+           "cost": statistics.median(ms[True])
+           / statistics.median(ms[False]) - 1,
+           "on_faster_pairs": sum(a < b for a, b in zip(ms[True],
+                                                        ms[False])),
+           "bit_equal": equal, "losses": first[True][0]}
+    del first, state0
+    _free()
+    return out
+
+
+def phase_train(smi):
+    """Training on the card (see the module docstring, phase 18)."""
+    from repro_torch.kernels import ops
+    t_phase = time.perf_counter()
+    _no_tf32()
+    ops.reset_launch_counts()
+    parts = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        full = _train_full_width(tmp)
+        parts["full_width_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        example = _train_example(tmp)
+        parts["example_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        card_cpu = _train_card_vs_cpu()
+        parts["card_vs_cpu_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        resume = _train_kill_resume(tmp)
+        parts["kill_resume_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    determinism = _train_determinism()
+    parts["determinism_s"] = time.perf_counter() - t0
+    _no_tf32()
+    launches = {k: v for k, v in ops.launch_counts().items() if v}
+    if launches:
+        raise AssertionError(f"training launched {launches}")
+    log(18, card=smi, full_width=full, example=example,
+        card_vs_cpu=card_cpu, kill_resume=resume, determinism=determinism,
+        parts_s=parts,
+        launches=launches, phase_s=time.perf_counter() - t_phase)
+
+
 # ---------------------------------------------------------------- main
 
 KERNELS = {
@@ -4241,6 +4618,7 @@ def main():
         launches15 = phase_studies(smi, trace)
     launches16 = phase_planner(smi)
     launches17 = phase_fabric(smi, get_config("qwen2-0.5b"))
+    phase_train(smi)
 
     main_launches = {
         "fused_dequant_mm": launches3["fused_dequant_mm"]

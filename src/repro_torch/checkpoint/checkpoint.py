@@ -14,8 +14,9 @@ Leaves are torch tensors (or anything numpy takes). bf16 is stored as
 its ``uint16`` bits, with ``"bfloat16"`` in ``dtypes``; every other
 dtype is spelled as numpy spells it. ``paths`` are the strings the
 reference's ``jax.tree_util.keystr`` gives for the same tree
-(``['blocks']['b0']['attn']['wq']['w'].data``), built here without JAX,
-so both packages name a damaged leaf alike. The manifest is written and
+(``['blocks']['b0']['attn']['wq']['w'].data``; a NamedTuple's fields by
+attribute, ``.opt.m['embed']['w']``), built here without JAX, so both
+packages name a damaged leaf alike. The manifest is written and
 read by the port's own MessagePack codec (``_msgpack``).
 
 Two restore paths share the format:
@@ -25,7 +26,9 @@ Two restore paths share the format:
     (``quant.prepare.tree_manifest``); a prepared tree (packed nibbles,
     int8 rows, scales, act scales) restores bit for bit;
   * **template-based** (``like=`` a tree): leaves restore into its
-    structure and are cast to each reference leaf's dtype.
+    structure (its NamedTuples included: a training state restores as
+    the ``TrainState`` it was) and are cast to each reference leaf's
+    dtype.
 
 Every leaf's full sha256 (over its true-dtype bytes) is verified before
 the tree is rebuilt: a damaged checkpoint raises :class:`ChecksumError`
@@ -78,6 +81,9 @@ def _tree_paths(tree) -> List[str]:
         elif isinstance(node, dict):
             for k in sorted(node):
                 walk(node[k], f"{prefix}[{k!r}]")
+        elif isinstance(node, tuple) and hasattr(node, "_fields"):
+            for k, v in zip(node._fields, node):
+                walk(v, f"{prefix}.{k}")
         elif isinstance(node, (list, tuple)):
             for i, v in enumerate(node):
                 walk(v, f"{prefix}[{i}]")
@@ -245,7 +251,8 @@ def restore_checkpoint(directory: str, step: int, like: Any = None,
                 f"leaf {_leaf_path(manifest, i)!r}: shape "
                 f"{tuple(arr.shape)} != {tuple(ref.shape)}")
         restored.append(_to_tensor(manifest, i, arr, device).to(ref.dtype))
-    return tree_from_manifest(spec, restored), manifest["metadata"]
+    return (tree_from_manifest(spec, restored, like),
+            manifest["metadata"])
 
 
 class CheckpointManager:

@@ -74,6 +74,20 @@ class ModelConfig:
         columns are masked in the head)."""
         return -(-self.vocab // 64) * 64
 
+    def params_count(self) -> int:
+        """Approximate parameter count (embeddings included once)."""
+        d, hd = self.d_model, self.head_dim_
+        attn = d * hd * (self.n_heads + 2 * self.n_kv_heads) \
+            + self.n_heads * hd * d
+        if self.moe:
+            ffn = 3 * d * self.moe.d_expert * self.moe.n_experts \
+                + d * self.moe.n_experts
+        else:
+            ffn = 3 * d * self.d_ff
+        layers = self.n_layers * (attn + ffn)
+        emb = self.vocab * d * (1 if self.tied_embeddings else 2)
+        return layers + emb
+
 
 @dataclasses.dataclass(frozen=True)
 class InputShape:

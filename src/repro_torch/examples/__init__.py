@@ -5,7 +5,7 @@ run as ``python -m repro_torch.examples.<name>``:
   * ``accelerator_study`` — size an MC-IPU accelerator for a model
     (numpy models, no device);
   * ``serve_lm``          — serve qwen2-0.5b under a policy, a plan or a
-    fleet of replicas (``--device``).
-
-``examples/train_lm.py`` waits for the port's training stack.
+    fleet of replicas (``--device``);
+  * ``train_lm``          — train a small LM on the Markov stream with
+    the whole training stack (``--device``).
 """

@@ -15,7 +15,9 @@ weights (never TF32 on the card).
 The state is written IN PLACE: ``forward`` and ``decode_step`` copy the
 new ``h`` and conv tail into the :class:`RGLRUState` tensors they are
 given and return that same state (a captured CUDA graph reads it by
-address).
+address). Training calls ``forward(..., write_state=False)``, which
+leaves the (fresh zero) state it reads as it is, for autograd, and
+returns the new one in new tensors.
 """
 from __future__ import annotations
 
@@ -154,7 +156,8 @@ def _scan_rglru(a, b, h0):
     return h, h[:, -1]
 
 
-def _block(params, x, state: RGLRUState, policy, path, recur):
+def _block(params, x, state: RGLRUState, policy, path, recur,
+           write_state=True):
     sp = policy.spec_for
     xr = mp_linear(params["w_in_rnn"], x, sp(f"{path}/w_in_rnn"),
                    path=f"{path}/w_in_rnn")
@@ -167,15 +170,18 @@ def _block(params, x, state: RGLRUState, policy, path, recur):
     out = h * activation("gelu")(gate.to(torch.float32))
     out = mp_linear(params["w_out"], out.to(x.dtype), sp(f"{path}/w_out"),
                     path=f"{path}/w_out")
+    if not write_state:
+        return out, RGLRUState(h_last, new_tail)
     state.h.copy_(h_last)
     state.conv.copy_(new_tail)
     return out, state
 
 
 def forward(params, cfg: RGLRUConfig, x, state: RGLRUState, policy,
-            path: str) -> Tuple[torch.Tensor, RGLRUState]:
+            path: str, write_state: bool = True
+            ) -> Tuple[torch.Tensor, RGLRUState]:
     """Full recurrent block over (B, S, d)."""
-    return _block(params, x, state, policy, path, _scan_rglru)
+    return _block(params, x, state, policy, path, _scan_rglru, write_state)
 
 
 def decode_step(params, cfg: RGLRUConfig, x, state: RGLRUState, policy,

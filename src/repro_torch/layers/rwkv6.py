@@ -16,7 +16,11 @@ The state is written IN PLACE (the reference returns new arrays):
 ``time_mix``, ``time_mix_step`` and ``channel_mix`` copy the new state
 into the :class:`RWKVState` tensors they are given and return that same
 state, so a captured CUDA graph that reads the state by address replays
-on live state (``serving/graphs.py``).
+on live state (``serving/graphs.py``). Training passes
+``write_state=False``: the state it starts from is a fresh zero that
+autograd keeps for backward (and a checkpointed region reads again when
+it recomputes), so ``time_mix`` and ``channel_mix`` then leave it as it
+is and return the new state in new tensors, as the reference does.
 """
 from __future__ import annotations
 
@@ -134,9 +138,11 @@ def _gate_out(params, x, o, g, policy, path):
 
 
 def time_mix(params, cfg: RWKVConfig, x, state: RWKVState, policy,
-             path: str) -> Tuple[torch.Tensor, RWKVState]:
+             path: str, write_state: bool = True
+             ) -> Tuple[torch.Tensor, RWKVState]:
     """Chunked parallel form over (B, S, d): the output, and the new wkv
-    state and time-mix shift written into ``state``."""
+    state and time-mix shift (written into ``state`` unless
+    ``write_state=False``)."""
     b, s, d = x.shape
     h, n = cfg.n_heads, cfg.head_dim
     shifted, x_last = _token_shift(x, state.x_prev_t)
@@ -186,6 +192,8 @@ def time_mix(params, cfg: RWKVConfig, x, state: RWKVState, policy,
         outs.append(o_inter + o_intra + o_cur)
     o = torch.stack(outs, 1).reshape(b, nc * c, h, n)[:, :s].reshape(b, s, d)
     out = _gate_out(params, x, o, g, policy, path)
+    if not write_state:
+        return out, RWKVState(s0, x_last, state.x_prev_c)
     state.s.copy_(s0)
     state.x_prev_t.copy_(x_last)
     return out, state
@@ -210,7 +218,8 @@ def time_mix_step(params, cfg: RWKVConfig, x, state: RWKVState, policy,
 
 
 def channel_mix(params, cfg: RWKVConfig, x, state: RWKVState, policy,
-                path: str, single_step: bool = False
+                path: str, single_step: bool = False,
+                write_state: bool = True
                 ) -> Tuple[torch.Tensor, RWKVState]:
     if single_step:
         shifted, x_last = state.x_prev_c[:, None].to(x.dtype), x[:, -1]
@@ -227,5 +236,7 @@ def channel_mix(params, cfg: RWKVConfig, x, state: RWKVState, policy,
     rr = torch.sigmoid(mp_linear(params["c_rec"], xr, sp(f"{path}/c_rec"),
                                  path=f"{path}/c_rec").to(torch.float32))
     out = (rr * vv.to(torch.float32)).to(x.dtype)
+    if not write_state:
+        return out, RWKVState(state.s, state.x_prev_t, x_last)
     state.x_prev_c.copy_(x_last)
     return out, state

@@ -16,6 +16,9 @@ fails at its first decode). Block parameters are stacked on a leading
 layer axis (``enc_blocks``, ``dec_blocks``), the reference's
 ``lax.scan`` a Python loop here; the KV caches are stacked the same way,
 as real tensors (never broadcast views), and written in place.
+Training (:func:`hidden_states`) runs the decoder in "train" mode (causal
+self-attention over the whole sequence, no cache), each encoder and
+decoder layer checkpointed unless ``cfg.remat`` is "none".
 """
 from __future__ import annotations
 
@@ -29,7 +32,7 @@ from repro_torch.layers.attention import AttnConfig, KVCache
 from repro_torch.layers.common import (apply_norm, dense_init, embed_init,
                                        norm_init, seeded_generator)
 from repro_torch.layers.mplinear import linear_init, mp_linear
-from repro_torch.models.lm import _embed, _head, layer_tree
+from repro_torch.models.lm import _embed, _head, remat_wrap, unstack
 
 
 def self_cfg(cfg: ModelConfig, causal: bool) -> AttnConfig:
@@ -101,26 +104,37 @@ def encode_block(bp, cfg: ModelConfig, x, positions, policy):
     return x + mlp.forward(bp["mlp"], h, policy, "enc/mlp", cfg.act)
 
 
-def encode(params, cfg: ModelConfig, frames):
-    """frames: (B, T, frontend_dim) stub embeddings -> (B, T, d)."""
+def _remat(cfg: ModelConfig, train: bool) -> str:
+    return "full" if train and cfg.remat != "none" else "none"
+
+
+def encode(params, cfg: ModelConfig, frames, train: bool = False):
+    """frames: (B, T, frontend_dim) stub embeddings -> (B, T, d);
+    ``train`` checkpoints each layer as ``cfg.remat`` says."""
     policy = get_policy(cfg.precision_policy)
     x = mp_linear(params["frontend_proj"],
                   frames.to(getattr(torch, cfg.compute_dtype)),
                   policy.spec_for("frontend_proj"), path="frontend_proj")
     positions = _positions(x.shape[0], x.shape[1], x)
-    for i in range(n_enc_layers(cfg)):
-        x = encode_block(layer_tree(params["enc_blocks"], i), cfg, x,
-                         positions, policy)
+    step = remat_wrap(lambda bp, h: encode_block(bp, cfg, h, positions,
+                                                 policy),
+                      _remat(cfg, train))
+    for bp in unstack(params["enc_blocks"]):
+        x = step(bp, x)
     return apply_norm(cfg.norm, x, params["enc_norm"])
 
 
 def decode_block(bp, cfg: ModelConfig, x, positions, enc_out, mode: str,
                  cache: KVCache, pos, policy):
     """One decoder block: causal self-attention into ``cache`` (written
-    in place; ``mode`` "prefill" from position 0 or "decode" at ``pos``),
-    cross-attention onto ``enc_out``, then the MLP."""
+    in place; ``mode`` "prefill" from position 0 or "decode" at ``pos``;
+    "train" over the whole sequence with no cache), cross-attention onto
+    ``enc_out``, then the MLP."""
     h = apply_norm(cfg.norm, x, bp["ln1"])
-    if mode == "prefill":
+    if mode == "train":
+        a = attention.forward(bp["attn"], self_cfg(cfg, True), h,
+                              positions, policy, "dec/attn")
+    elif mode == "prefill":
         a, _ = attention.prefill(bp["attn"], self_cfg(cfg, True), h,
                                  positions, cache, policy, "dec/attn")
     elif mode == "decode":
@@ -140,12 +154,33 @@ def _dec_run(params, cfg: ModelConfig, tokens, positions, enc_out,
              mode: str, caches: KVCache, pos=None):
     policy = get_policy(cfg.precision_policy)
     x = _embed(params, cfg, tokens)
-    for i in range(cfg.n_layers):
-        x = decode_block(layer_tree(params["dec_blocks"], i), cfg, x,
-                         positions, enc_out, mode,
+    for i, bp in enumerate(unstack(params["dec_blocks"])):
+        x = decode_block(bp, cfg, x, positions, enc_out, mode,
                          KVCache(caches.k[i], caches.v[i], caches.pos[i]),
                          pos, policy)
     return x
+
+
+def hidden_states(params, cfg: ModelConfig, tokens, frames):
+    """Train mode: (the decoder's final normed hidden states (B, S, d)
+    given ``frames``, aux 0)."""
+    policy = get_policy(cfg.precision_policy)
+    enc_out = encode(params, cfg, frames, train=True)
+    positions = _positions(tokens.shape[0], tokens.shape[1], tokens)
+
+    def layer(bp, h):
+        return decode_block(bp, cfg, h, positions, enc_out, "train", None,
+                            None, policy)
+
+    step = remat_wrap(layer, _remat(cfg, True))
+    x = _embed(params, cfg, tokens)
+    for bp in unstack(params["dec_blocks"]):
+        x = step(bp, x)
+    return (apply_norm(cfg.norm, x, params["final_norm"]),
+            torch.zeros((), device=x.device))
+
+
+head = _head
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device=None,

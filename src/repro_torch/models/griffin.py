@@ -9,6 +9,10 @@ rec blocks in the list ``params["tail"]``. The cache mirrors that:
 "tail": [RGLRUState, ...]}``, every tensor real (never a broadcast
 view) and updated in place. The embedding is not scaled by sqrt(d)
 here (the reference's griffin does not), and the head is tied.
+Training (:func:`hidden_states`) runs the blocks in "train" mode from fresh
+zero recurrent states it never writes, each stacked group checkpointed
+unless ``cfg.remat`` is "none" (the trailing blocks are not, as in the
+reference).
 """
 from __future__ import annotations
 
@@ -22,7 +26,7 @@ from repro_torch.layers.attention import AttnConfig
 from repro_torch.layers.common import (apply_norm, embed_init, norm_init,
                                        seeded_generator, softcap)
 from repro_torch.layers.mplinear import _dot_f32
-from repro_torch.models.lm import layer_tree
+from repro_torch.models.lm import remat_wrap, unstack
 
 
 def _rg_cfg(cfg: ModelConfig) -> rglru.RGLRUConfig:
@@ -97,9 +101,15 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device=None,
 def _apply_block(bp, cfg: ModelConfig, kind: str, x, positions, policy,
                  mode: str, cache, pos):
     h = apply_norm(cfg.norm, x, bp["ln1"])
-    if kind == "rec":
+    if kind == "rec" and mode == "train":
+        a, _ = rglru.forward(bp["rec"], _rg_cfg(cfg), h, cache, policy,
+                             "block/rec", write_state=False)
+    elif kind == "rec":
         fn = rglru.decode_step if mode == "decode" else rglru.forward
         a, cache = fn(bp["rec"], _rg_cfg(cfg), h, cache, policy, "block/rec")
+    elif mode == "train":
+        a = attention.forward(bp["attn"], _attn_cfg(cfg), h, positions,
+                              policy, "block/attn")
     elif mode == "prefill":
         a, cache = attention.prefill(bp["attn"], _attn_cfg(cfg), h,
                                      positions, cache, policy, "block/attn")
@@ -113,17 +123,44 @@ def _apply_block(bp, cfg: ModelConfig, kind: str, x, positions, policy,
 
 def _run(params, cfg: ModelConfig, x, positions, mode: str, caches, pos):
     policy = get_policy(cfg.precision_policy)
-    pat, n_groups, n_tail = _pattern(cfg)
-    for g in range(n_groups):
+    pat, _, n_tail = _pattern(cfg)
+    for g, gp in enumerate(unstack(params["blocks"])):
         for i, kind in enumerate(pat):
             c = caches["groups"][f"b{i}"]
-            x = _apply_block(layer_tree(params["blocks"][f"b{i}"], g), cfg,
-                             kind, x, positions, policy, mode,
-                             type(c)(*(t[g] for t in c)), pos)
+            x = _apply_block(gp[f"b{i}"], cfg, kind, x, positions, policy,
+                             mode, type(c)(*(t[g] for t in c)), pos)
     for i in range(n_tail):
         x = _apply_block(params["tail"][i], cfg, "rec", x, positions, policy,
                          mode, caches["tail"][i], pos)
     return x
+
+
+def hidden_states(params, cfg: ModelConfig, tokens):
+    """Train mode: (final normed hidden states (B, S, d), aux 0)."""
+    policy = get_policy(cfg.precision_policy)
+    pat, _, n_tail = _pattern(cfg)
+    b, s = tokens.shape
+    positions = torch.arange(s, dtype=torch.int32,
+                             device=tokens.device)[None, :].expand(b, s)
+    x = _embed(params, cfg, tokens)
+    # one zero state serves every rec block: train mode never writes it
+    st = rglru.init_state(b, _rg_cfg(cfg), x.device,
+                          getattr(torch, cfg.compute_dtype))
+
+    def group(gp, h):
+        for i, kind in enumerate(pat):
+            h = _apply_block(gp[f"b{i}"], cfg, kind, h, positions, policy,
+                             "train", st, None)
+        return h
+
+    step = remat_wrap(group, "none" if cfg.remat == "none" else "full")
+    for gp in unstack(params["blocks"]):
+        x = step(gp, x)
+    for i in range(n_tail):
+        x = _apply_block(params["tail"][i], cfg, "rec", x, positions, policy,
+                         "train", st, None)
+    return (apply_norm(cfg.norm, x, params["final_norm"]),
+            torch.zeros((), device=x.device))
 
 
 def _embed(params, cfg: ModelConfig, tokens):
@@ -139,6 +176,9 @@ def _logits(params, cfg: ModelConfig, x):
         col = torch.arange(cfg.padded_vocab, device=logits.device)
         logits = logits.masked_fill(col >= cfg.vocab, -1e30)
     return logits
+
+
+head = _logits
 
 
 def prefill(params, cfg: ModelConfig, tokens, caches):

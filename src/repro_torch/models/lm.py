@@ -9,14 +9,22 @@ that axis is a Python loop here; its activation-sharding pins mean
 nothing on one GPU and are gone. KV caches are stacked the same way and
 updated in place (``layers.attention``). An MoE block holds a ``"moe"``
 subtree where a dense one holds ``"mlp"``; serving drops the MoE
-layer's load-balancing loss, as the reference's serving entry points do.
+layer's load-balancing loss, as the reference's serving entry points do,
+and training adds 0.01 of it to the loss (``registry``'s ``loss_fn``).
+
+Training runs the blocks in ``"train"`` mode (``attention.forward``, no
+cache), each layer group checkpointed as ``cfg.remat`` says
+(:func:`remat_wrap`).
 """
 from __future__ import annotations
 
+import functools
 import math
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.configs import ModelConfig
 from repro_torch.core.policy import get_policy
@@ -101,13 +109,20 @@ def init(cfg: ModelConfig, seed: int = 0, device=None,
     return params
 
 
-def layer_tree(tree, i: int):
-    """Stacked group ``i`` of a block subtree (views, no copy)."""
+def unstack(tree):
+    """The layers of a stacked block subtree: one tree per entry of the
+    leading layer axis, every leaf a view (no copy), from one
+    ``torch.unbind`` per leaf. In training autograd then stacks the
+    layers' gradients once, where indexing layer by layer would scatter
+    each layer's gradient into a zero tensor the size of the whole stack
+    (work quadratic in depth)."""
     if isinstance(tree, dict):
-        return {k: layer_tree(v, i) for k, v in tree.items()}
+        subs = {k: unstack(v) for k, v in tree.items()}
+        n = len(next(iter(subs.values()))) if subs else 0
+        return [{k: subs[k][i] for k in tree} for i in range(n)]
     if isinstance(tree, PreparedWeight):
-        return tree.index(i)
-    return tree[i]
+        return [tree.index(i) for i in range(tree.data.shape[0])]
+    return list(torch.unbind(tree, 0))
 
 
 def _embed(params, cfg: ModelConfig, tokens):
@@ -136,10 +151,16 @@ def _head(params, cfg: ModelConfig, x):
 
 def _apply_block(params, cfg: ModelConfig, kind: str, x, positions, policy,
                  mode: str, cache: Optional[KVCache], pos, valid=None):
+    """One block; returns (x, the MoE aux loss: a () f32 tensor, or 0.0
+    for a dense block). ``mode`` "train" attends over the whole sequence
+    with no cache."""
     path = f"block/{kind}/attn"
     acfg = attn_cfg(cfg, kind)
     h = apply_norm(cfg.norm, x, params["ln1"])
-    if mode == "prefill":
+    if mode == "train":
+        a = attention.forward(params["attn"], acfg, h, positions, policy,
+                              path)
+    elif mode == "prefill":
         a, cache = attention.prefill(params["attn"], acfg, h, positions,
                                      cache, policy, path)
     elif mode == "chunk":
@@ -155,28 +176,82 @@ def _apply_block(params, cfg: ModelConfig, kind: str, x, positions, policy,
         a = apply_norm(cfg.norm, a, params["post_ln1"])
     x = x + a
     h = apply_norm(cfg.norm, x, params["ln2"])
+    aux = 0.0
     if cfg.moe:
-        f, _ = moe.forward(params["moe"], moe_cfg(cfg), h, policy,
-                           "block/moe")
+        f, aux = moe.forward(params["moe"], moe_cfg(cfg), h, policy,
+                             "block/moe")
     else:
         f = mlp.forward(params["mlp"], h, policy, "block/mlp", cfg.act)
     if cfg.post_norms:
         f = apply_norm(cfg.norm, f, params["post_ln2"])
-    return x + f
+    return x + f, aux
 
 
 def _run_blocks(params, cfg: ModelConfig, x, positions, mode: str, caches,
                 pos=None, valid=None):
+    """The serving modes: every block over the live ``caches``."""
     policy = get_policy(cfg.precision_policy)
     kinds = group_kinds(cfg)
-    for gi in range(cfg.n_layers // len(kinds)):
+    for gi, gp in enumerate(unstack(params["blocks"])):
         for i, kind in enumerate(kinds):
             c = caches[f"b{i}"]
-            x = _apply_block(layer_tree(params["blocks"][f"b{i}"], gi), cfg,
-                             kind, x, positions, policy, mode,
-                             KVCache(c.k[gi], c.v[gi], c.pos[gi]), pos,
-                             valid=valid)
+            x, _ = _apply_block(gp[f"b{i}"], cfg, kind, x, positions,
+                                policy, mode,
+                                KVCache(c.k[gi], c.v[gi], c.pos[gi]), pos,
+                                valid=valid)
     return x
+
+
+# the products ``remat="dots"`` keeps for backward: the 2-D matmuls a
+# projection lowers to, not the batched attention einsums (the
+# reference's ``checkpoint_dots_with_no_batch_dims``)
+_SAVED_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    if op in _SAVED_DOTS:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def remat_wrap(fn: Callable, remat: str) -> Callable:
+    """``fn`` under ``cfg.remat``: "none" as is; "full" checkpointed
+    (only its inputs kept, everything recomputed in backward); "dots"
+    checkpointed keeping the matmul outputs. All three give the same
+    values."""
+    if remat == "none":
+        return fn
+    kw = {}
+    if remat == "dots":
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _save_dots)
+    elif remat != "full":
+        raise ValueError(f"unknown remat {remat!r}")
+
+    def wrapped(*args):
+        return checkpoint(fn, *args, use_reentrant=False, **kw)
+
+    return wrapped
+
+
+def train_blocks(params, cfg: ModelConfig, x, positions):
+    """Every block in "train" mode -> (x, the summed MoE aux loss), each
+    layer group checkpointed as ``cfg.remat`` says."""
+    policy = get_policy(cfg.precision_policy)
+    kinds = group_kinds(cfg)
+
+    def group(gp, h, aux):
+        for i, kind in enumerate(kinds):
+            h, a = _apply_block(gp[f"b{i}"], cfg, kind, h, positions,
+                                policy, "train", None, None)
+            aux = aux + a
+        return h, aux
+
+    step = remat_wrap(group, cfg.remat)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for gp in unstack(params["blocks"]):
+        x, aux = step(gp, x, aux)
+    return x, aux
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device=None,
@@ -197,6 +272,28 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device=None,
 
 def _arange(n: int, like: torch.Tensor) -> torch.Tensor:
     return torch.arange(n, dtype=torch.int32, device=like.device)
+
+
+def _train_positions(tokens):
+    b, s = tokens.shape[:2]
+    return _arange(s, tokens)[None, :].expand(b, s)
+
+
+def hidden_states(params, cfg: ModelConfig, tokens):
+    """tokens: (B, S) -> (final normed hidden states (B, S, d), aux)."""
+    x = _embed(params, cfg, tokens)
+    x, aux = train_blocks(params, cfg, x, _train_positions(tokens))
+    return apply_norm(cfg.norm, x, params["final_norm"]), aux
+
+
+def train_logits(params, cfg: ModelConfig, tokens):
+    """tokens: (B, S) -> (logits (B, S, V) f32, aux)."""
+    x, aux = hidden_states(params, cfg, tokens)
+    return _head(params, cfg, x), aux
+
+
+# the training head (``registry``'s loss runs it over chunks)
+head = _head
 
 
 def prefill(params, cfg: ModelConfig, tokens, caches):

@@ -3,6 +3,7 @@
 and ``encdec``.
 
 ``build(cfg)`` -> :class:`ModelAPI` with ``init(seed, device, draws)``,
+``loss_fn(params, batch) -> (loss, {"nll", "aux"})`` (training),
 ``prefill``, ``decode_step``, ``prefill_chunk`` (``lm`` only; None
 elsewhere), ``init_cache(batch, max_len, device)`` and the ``prepare``
 hook; ``encdec``'s prefill also takes ``batch["frames"]`` and returns
@@ -11,7 +12,9 @@ the decode state ``(caches, enc_out)`` its decode steps take;
 ``projection_groups`` lists every family's precision-tuning units (the
 router's cost model reads them);
 ``make_block_decode`` builds the blocked decode program the engine
-dispatches once per block (``lm`` and ``vlm``).
+dispatches once per block (``lm`` and ``vlm``); ``input_specs`` gives a
+step kind's batch shapes and dtypes and ``materialize_batch`` draws such
+a batch from a numpy seed.
 """
 from __future__ import annotations
 
@@ -23,8 +26,10 @@ from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.configs import ModelConfig
+from repro_torch.configs import InputShape, ModelConfig
+from repro_torch.device import resolve_device
 from repro_torch.models import encdec, griffin, lm, rwkv, vlm
+from repro_torch.models.losses import fused_chunked_xent
 
 
 @dataclasses.dataclass(frozen=True)
@@ -323,7 +328,7 @@ def make_block_decode(api: "ModelAPI", n: int, policy=None,
 class ModelAPI(NamedTuple):
     cfg: ModelConfig
     init: Callable            # init(seed=0, device=None, draws="torch")
-    loss_fn: Callable         # training waits for a later slice (None)
+    loss_fn: Callable         # loss_fn(params, batch) -> (loss, metrics)
     prefill: Callable
     decode_step: Callable
     init_cache: Callable      # init_cache(batch, max_len, device=None)
@@ -331,25 +336,43 @@ class ModelAPI(NamedTuple):
     prefill_chunk: Callable = None
 
 
-# the families ``build`` serves, each by its module's init / prefill /
-# decode_step / init_cache
+# the families ``build`` serves, each by its module's init /
+# hidden_states + head (training) / prefill / decode_step / init_cache
 _FAMILY_MODULES = {"lm": lm, "vlm": vlm, "rwkv": rwkv, "griffin": griffin,
                    "encdec": encdec}
+# the batch entries a family's prefill and hidden_states take after the
+# tokens
+_EXTRA_INPUTS = {"vlm": ("patches",), "encdec": ("frames",)}
+
+
+def _loss_fn(mod, cfg: ModelConfig, extras) -> Callable:
+    """``loss_fn(params, batch)`` of a family: ``batch["tokens"]`` (B,
+    S + 1) -> (mean next-token nats + 0.01 aux, {"nll", "aux"}) over the
+    positions ``batch["mask"]`` keeps (optional, (B, S + 1); the
+    reference's vlm and encdec take none). aux is the MoE load-balancing
+    loss, 0 without experts. The head and loss run fused over chunks
+    (``losses.fused_chunked_xent``): the (B, S, V) logits never exist."""
+    def loss_fn(params, batch):
+        tokens = batch["tokens"]
+        x, aux = mod.hidden_states(params, cfg, tokens[:, :-1],
+                                   *(batch[k] for k in extras))
+        mask = batch.get("mask")
+        loss, m = fused_chunked_xent(
+            x, lambda xc: mod.head(params, cfg, xc), tokens[:, 1:],
+            mask[:, 1:] if mask is not None else None)
+        return loss + 0.01 * aux, {**m, "aux": aux}
+
+    return loss_fn
 
 
 def build(cfg: ModelConfig) -> ModelAPI:
     mod = _FAMILY_MODULES[cfg.family]
-    if cfg.family == "vlm":
-        def prefill(p, batch, caches):
-            return vlm.prefill(p, cfg, batch["tokens"], caches,
-                               batch["patches"])
-    elif cfg.family == "encdec":
-        def prefill(p, batch, caches):
-            return encdec.prefill(p, cfg, batch["tokens"], caches,
-                                  batch["frames"])
-    else:
-        def prefill(p, batch, caches):
-            return mod.prefill(p, cfg, batch["tokens"], caches)
+    extras = _EXTRA_INPUTS.get(cfg.family, ())
+
+    def prefill(p, batch, caches):
+        return mod.prefill(p, cfg, batch["tokens"], caches,
+                           *(batch[k] for k in extras))
+
     # vlm's caches also hold the patch embeddings it prefills
     extra = (cfg.n_patches or 0) if cfg.family == "vlm" else 0
     chunk = None
@@ -361,7 +384,7 @@ def build(cfg: ModelConfig) -> ModelAPI:
         cfg,
         lambda seed=0, device=None, draws="torch": mod.init(
             cfg, seed, device, draws),
-        None,
+        _loss_fn(mod, cfg, extras),
         prefill,
         lambda p, batch, caches: mod.decode_step(
             p, cfg, batch["token"], batch["pos"], caches),
@@ -385,14 +408,56 @@ def calibration_batch(cfg: ModelConfig, batch: int, seq_len: int,
     jax.random, which torch cannot repeat): ``tokens`` (batch, seq_len)
     int32 and, for vlm, ``patches`` (batch, n_patches, vit_dim), for
     encdec ``frames`` (batch, seq_len // 4, frontend_dim), both f32
-    standard normal (the reference's ``input_specs`` shapes)."""
+    standard normal (``materialize_batch``'s prefill batch, in numpy)."""
+    shape = InputShape("calibration", seq_len, batch, "prefill")
+    return {k: v.numpy() for k, v in
+            materialize_batch(cfg, shape, seed, device="cpu").items()}
+
+
+class Spec(NamedTuple):
+    """One batch entry's shape and dtype (no storage)."""
+    shape: Tuple[int, ...]
+    dtype: torch.dtype
+
+
+def input_specs(cfg: ModelConfig, shape: InputShape) -> Dict[str, Spec]:
+    """The batch of a step kind for (arch x shape): "train" takes
+    ``tokens`` (B, S + 1), "prefill" ``tokens`` (B, S), both with encdec
+    ``frames`` (B, S // 4, frontend_dim) or vlm ``patches`` (B,
+    n_patches, vit_dim) in f32; "decode" ``token`` (B, 1) and ``pos``
+    (B,)."""
+    b, s = shape.global_batch, shape.seq_len
+    i32, f32 = torch.int32, torch.float32
+    if shape.kind in ("train", "prefill"):
+        batch = {"tokens": Spec((b, s + 1 if shape.kind == "train" else s),
+                                i32)}
+        if cfg.family == "encdec":
+            batch["frames"] = Spec((b, s // 4, cfg.frontend_dim), f32)
+        if cfg.family == "vlm":
+            batch["patches"] = Spec((b, cfg.n_patches, cfg.vit_dim), f32)
+        return batch
+    if shape.kind == "decode":
+        return {"token": Spec((b, 1), i32), "pos": Spec((b,), i32)}
+    raise ValueError(shape.kind)
+
+
+def materialize_batch(cfg: ModelConfig, shape: InputShape, seed: int = 0,
+                      device=None) -> Dict[str, torch.Tensor]:
+    """A random batch matching ``input_specs`` on ``device`` (CUDA by
+    default), drawn from ``np.random.default_rng(seed)`` in spec order:
+    tokens uniform in [0, min(vocab, 1000)), ``pos`` seq_len - 1, float
+    entries standard normal (the reference's distributions; it draws
+    with jax.random)."""
+    device = resolve_device(device)
     rng = np.random.default_rng(seed)
-    out = {"tokens": rng.integers(0, min(cfg.vocab, 1000),
-                                  (batch, seq_len), dtype=np.int32)}
-    if cfg.family == "vlm":
-        out["patches"] = rng.standard_normal(
-            (batch, cfg.n_patches, cfg.vit_dim), dtype=np.float32)
-    if cfg.family == "encdec":
-        out["frames"] = rng.standard_normal(
-            (batch, seq_len // 4, cfg.frontend_dim), dtype=np.float32)
+    out = {}
+    for name, spec in input_specs(cfg, shape).items():
+        if name == "pos":
+            a = np.full(spec.shape, shape.seq_len - 1, np.int32)
+        elif spec.dtype == torch.int32:
+            a = rng.integers(0, min(cfg.vocab, 1000), spec.shape,
+                             dtype=np.int32)
+        else:
+            a = rng.standard_normal(spec.shape, dtype=np.float32)
+        out[name] = torch.from_numpy(a).to(device)
     return out

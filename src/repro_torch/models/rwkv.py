@@ -5,7 +5,9 @@ The stacked ``blocks`` keep the reference's leading layer axis; its
 ``lax.scan`` over them is a Python loop. The decode state is one
 :class:`~repro_torch.layers.rwkv6.RWKVState` of stacked (n_layers, ...)
 tensors, O(1) in sequence length, updated in place. ``decode_step``
-ignores ``pos``.
+ignores ``pos``. Training (:func:`hidden_states`) starts every layer from a
+fresh zero state it never writes, each layer checkpointed unless
+``cfg.remat`` is "none".
 """
 from __future__ import annotations
 
@@ -18,7 +20,7 @@ from repro_torch.layers import rwkv6
 from repro_torch.layers.common import (apply_norm, embed_init, norm_init,
                                        seeded_generator, softcap)
 from repro_torch.layers.mplinear import _dot_f32, linear_init
-from repro_torch.models.lm import layer_tree
+from repro_torch.models.lm import remat_wrap, unstack
 
 
 def _rwkv_cfg(cfg: ModelConfig) -> rwkv6.RWKVConfig:
@@ -57,27 +59,32 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int = 0, device=None,
 
 
 def _block(bp, cfg: ModelConfig, x, st: rwkv6.RWKVState, policy,
-           single_step: bool):
+           single_step: bool, write_state: bool = True):
     """One layer (``bp``: its slice of ``blocks``): time mix, then
-    channel mix, each behind a LayerNorm; ``st`` is updated in place."""
+    channel mix, each behind a LayerNorm; ``st`` is updated in place
+    unless ``write_state=False``."""
     rc = _rwkv_cfg(cfg)
     hn = apply_norm("ln", x, bp["ln1"])
-    mix = rwkv6.time_mix_step if single_step else rwkv6.time_mix
-    a, st = mix(bp["mix"], rc, hn, st, policy, "block/mix")
+    if single_step:
+        a, st = rwkv6.time_mix_step(bp["mix"], rc, hn, st, policy,
+                                    "block/mix")
+    else:
+        a, st = rwkv6.time_mix(bp["mix"], rc, hn, st, policy, "block/mix",
+                               write_state=write_state)
     x = x + a
     hn = apply_norm("ln", x, bp["ln2"])
     c, st = rwkv6.channel_mix(bp["mix"], rc, hn, st, policy, "block/mix",
-                              single_step=single_step)
+                              single_step=single_step,
+                              write_state=write_state)
     return x + c
 
 
 def _run(params, cfg: ModelConfig, x, states: rwkv6.RWKVState,
          single_step: bool):
     policy = get_policy(cfg.precision_policy)
-    for i in range(cfg.n_layers):
-        x = _block(layer_tree(params["blocks"], i), cfg, x,
-                   rwkv6.RWKVState(*(t[i] for t in states)), policy,
-                   single_step)
+    for i, bp in enumerate(unstack(params["blocks"])):
+        x = _block(bp, cfg, x, rwkv6.RWKVState(*(t[i] for t in states)),
+                   policy, single_step)
     return x
 
 
@@ -94,6 +101,27 @@ def _head(params, cfg: ModelConfig, x):
         col = torch.arange(cfg.padded_vocab, device=logits.device)
         logits = logits.masked_fill(col >= cfg.vocab, -1e30)
     return logits
+
+
+head = _head
+
+
+def hidden_states(params, cfg: ModelConfig, tokens):
+    """Train mode: (final normed hidden states (B, S, d), aux 0), every
+    layer from a zero state."""
+    policy = get_policy(cfg.precision_policy)
+    x = _embed(params, cfg, tokens)
+    st = rwkv6.init_state(tokens.shape[0], _rwkv_cfg(cfg), x.device,
+                          getattr(torch, cfg.compute_dtype))
+
+    def layer(bp, h):
+        return _block(bp, cfg, h, st, policy, False, write_state=False)
+
+    step = remat_wrap(layer, "none" if cfg.remat == "none" else "full")
+    for bp in unstack(params["blocks"]):
+        x = step(bp, x)
+    return (apply_norm("ln", x, params["final_norm"]),
+            torch.zeros((), device=x.device))
 
 
 def prefill(params, cfg: ModelConfig, tokens, states):

@@ -4,7 +4,9 @@
 The frontend is a stub: callers pass precomputed patch embeddings
 (B, n_patches, vit_dim). A two-layer MLP projector maps them into the
 LM's embedding space and the sequence is [patch embeddings ; token
-embeddings]; logits come from the token positions. Decode is the lm's.
+embeddings]; logits come from the token positions. Decode is the lm's;
+training runs the prefixed sequence through the lm's train-mode blocks
+and takes the loss over the token positions.
 The engine serves vlm text-only, as the reference's does: it never
 installs patches (``ServingEngine`` admits vlm prompts by teacher
 forcing).
@@ -49,6 +51,24 @@ def _project(params, cfg: ModelConfig, patches):
                      policy.spec_for("projector/fc2"), path="projector/fc2")
 
 
+def _prefix_seq(params, cfg: ModelConfig, tokens, patches):
+    """[projected patches ; token embeddings]: (B, P + S, d)."""
+    return torch.cat([_project(params, cfg, patches),
+                      lm._embed(params, cfg, tokens)], 1)
+
+
+def hidden_states(params, cfg: ModelConfig, tokens, patches):
+    """Train-mode blocks over the prefixed sequence -> (final normed
+    hidden states of the token positions (B, S, d), aux)."""
+    x = _prefix_seq(params, cfg, tokens, patches)
+    x, aux = lm.train_blocks(params, cfg, x, lm._train_positions(x))
+    x = apply_norm(cfg.norm, x, params["final_norm"])
+    return x[:, patches.shape[1]:], aux
+
+
+head = lm._head
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device=None,
                dtype=torch.bfloat16):
     return lm.init_cache(cfg, batch, max_len, device, dtype)
@@ -57,8 +77,7 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device=None,
 def prefill(params, cfg: ModelConfig, tokens, caches, patches):
     """tokens: (B, S); patches: (B, P, vit_dim) -> (logits of the last
     token (B, V), caches holding P + S positions)."""
-    x = torch.cat([_project(params, cfg, patches),
-                   lm._embed(params, cfg, tokens)], 1)
+    x = _prefix_seq(params, cfg, tokens, patches)
     b, s, _ = x.shape
     positions = torch.arange(s, dtype=torch.int32,
                              device=x.device)[None, :].expand(b, s)

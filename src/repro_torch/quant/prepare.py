@@ -316,11 +316,14 @@ def tree_manifest(tree) -> Tuple[Any, list]:
     return enc(tree), leaves
 
 
-def tree_from_manifest(spec, leaves: Sequence[Any]):
+def tree_from_manifest(spec, leaves: Sequence[Any], like=None):
     """Rebuild the tree :func:`tree_manifest` encoded, consuming restored
-    leaves (exact dtypes: no template, no cast)."""
+    leaves (exact dtypes: no template, no cast). The spec spells every
+    tuple alike; given ``like`` (a tree of the same structure), each
+    tuple that ``like`` holds as a NamedTuple comes back as that
+    NamedTuple."""
 
-    def dec(s):
+    def dec(s, lk):
         t = s["t"]
         if t == "none":
             return None
@@ -332,16 +335,21 @@ def tree_from_manifest(spec, leaves: Sequence[Any]):
                 None if s["act_scale"] is None
                 else leaves[s["act_scale"]])
         if t == "dict":
-            return {k: dec(v) for k, v in zip(s["keys"], s["items"])}
-        if t == "list":
-            return [dec(v) for v in s["items"]]
-        if t == "tuple":
-            return tuple(dec(v) for v in s["items"])
+            return {k: dec(v, None if lk is None else lk[k])
+                    for k, v in zip(s["keys"], s["items"])}
+        if t in ("list", "tuple"):
+            items = [dec(v, None if lk is None else lk[i])
+                     for i, v in enumerate(s["items"])]
+            if t == "list":
+                return items
+            if isinstance(lk, tuple) and hasattr(lk, "_fields"):
+                return type(lk)(*items)
+            return tuple(items)
         if t == "leaf":
             return leaves[s["i"]]
         raise ValueError(f"unknown tree-spec node type {t!r}")
 
-    return dec(spec)
+    return dec(spec, like)
 
 
 def iter_projection_weights(params, paths: PathResolver):

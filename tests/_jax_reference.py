@@ -670,10 +670,283 @@ def task_encdec():
     return out
 
 
+# ------------------------------------------------------------ training
+# ``tests/test_torch_train.py`` and ``tests/test_torch_train_families.py``
+
+TRAIN_ARCH = "qwen2-0.5b"
+TRAIN_FAMILY_ARCHS = ("rwkv6-1.6b", "recurrentgemma-9b", "mixtral-8x7b",
+                      "internvl2-1b", "seamless-m4t-medium")
+# the policies whose loss and gradients the qwen2 cases compare; "fp32"
+# also runs the activations in f32 (compute_dtype)
+TRAIN_POLICIES = ("fp32", "bf16", "int8_serving")
+# the whole-step cases: name -> (policy, TrainConfig overrides, batch)
+STEP_CASES = {"plain": ("bf16", {}, 2),
+              "mb2_scaled": ("bf16", dict(microbatches=2,
+                                          use_loss_scaling=True), 4)}
+N_STEPS = 3
+TRAIN_SEQ = 16
+# the fused-xent cases: (S, chunk, masked)
+XENT_CASES = ((16, 8, False), (16, 8, True), (13, 8, False), (13, 8, True),
+              (13, 512, True))
+LOSS_SCALE_FLAGS = (True, True, False, True, True, True, True, False, True)
+SCHEDULE_STEPS = (0, 1, 5, 10, 50, 99, 100, 101, 777, 5000, 9999, 10000,
+                  20000)
+
+
+def train_config(policy):
+    """The reduced qwen2 config of a training case: ``policy``, and f32
+    activations under "fp32"."""
+    from repro.configs import reduced
+    cfg = reduced(TRAIN_ARCH)
+    if policy == "fp32":
+        return dataclasses.replace(cfg, precision_policy="fp32",
+                                   compute_dtype="float32")
+    return dataclasses.replace(cfg, precision_policy=policy)
+
+
+def step_config(case):
+    """The ``TrainConfig`` fields of a whole-step case (lr 1e-3, warmup
+    of one step, so every step after the first moves the weights)."""
+    return dict(lr=1e-3, warmup=1, total_steps=10, **STEP_CASES[case][1])
+
+
+def train_tokens(vocab, batch, seq, seed):
+    """(batch, seq + 1) int32 tokens in [0, vocab)."""
+    rng = np.random.default_rng(seed)
+    return rng.integers(0, vocab, (batch, seq + 1)).astype(np.int32)
+
+
+def train_mask(batch, seq, seed):
+    """(batch, seq + 1) bool: about a quarter of the positions dropped."""
+    rng = np.random.default_rng(seed)
+    return rng.random((batch, seq + 1)) > 0.25
+
+
+def optim_inputs():
+    """A small tree of params and three steps of gradients (the second
+    with one large leaf, so clipping bites)."""
+    rng = np.random.default_rng(11)
+    params = {"a": rng.standard_normal((3, 4)).astype(np.float32),
+              "b": {"c": rng.standard_normal(5).astype(np.float32),
+                    "d": np.ones(2, np.float32)}}
+    grads = []
+    for i in range(3):
+        g = {"a": rng.standard_normal((3, 4)).astype(np.float32),
+             "b": {"c": rng.standard_normal(5).astype(np.float32),
+                   "d": rng.standard_normal(2).astype(np.float32)}}
+        if i == 1:
+            g["a"] = g["a"] * 40.0
+        grads.append(g)
+    return params, grads
+
+
+def xent_inputs(s, masked):
+    """x (2, s, 8) f32, a (8, 40) head, targets (2, s) in [0, 40) and,
+    when ``masked``, a (2, s) mask."""
+    rng = np.random.default_rng(17 + s)
+    out = {"x": rng.standard_normal((2, s, 8)).astype(np.float32),
+           "w": rng.standard_normal((8, 40)).astype(np.float32),
+           "targets": rng.integers(0, 40, (2, s)).astype(np.int32)}
+    if masked:
+        out["mask"] = rng.random((2, s)) > 0.3
+    return out
+
+
+def _optim_cases():
+    import jax.numpy as jnp
+
+    from repro.optim import (AdamWConfig, adamw_init, adamw_update,
+                             clip_by_global_norm, loss_scale_init,
+                             loss_scale_update, warmup_cosine)
+    from repro.optim.loss_scale import grads_finite
+    params, grads = optim_inputs()
+    out = {"adamw": {}}
+    for name, cfg in (("default", AdamWConfig()),
+                      ("no_clip", AdamWConfig(lr=0.1, weight_decay=0.0,
+                                              grad_clip=None))):
+        p = {k: jnp.asarray(v) if not isinstance(v, dict)
+             else {kk: jnp.asarray(vv) for kk, vv in v.items()}
+             for k, v in params.items()}
+        st = adamw_init(p)
+        steps = []
+        for i, g in enumerate(grads):
+            p, st, m = adamw_update(cfg, p, g, st, lr_scale=0.5 + 0.25 * i)
+            steps.append({"params": _np_tree(p), "m": _np_tree(st.m),
+                          "v": _np_tree(st.v), "step": int(st.step),
+                          "grad_norm": float(m["grad_norm"])})
+        out["adamw"][name] = steps
+    clipped, norm = clip_by_global_norm(grads[1], 0.5)
+    out["clip"] = {"grads": _np_tree(clipped), "norm": float(norm)}
+    out["schedule"] = {
+        (w, t): [float(warmup_cosine(s, warmup=w, total=t))
+                 for s in SCHEDULE_STEPS]
+        for w, t in ((100, 10_000), (0, 100), (10, 100))}
+    st = loss_scale_init(1024.0)
+    trace = []
+    for fin in LOSS_SCALE_FLAGS:
+        st = loss_scale_update(st, jnp.asarray(fin), growth_interval=3)
+        trace.append((float(st.scale), int(st.good_steps)))
+    out["loss_scale"] = trace
+    out["finite"] = [bool(grads_finite(grads[0])),
+                     bool(grads_finite({"a": jnp.asarray([1.0, jnp.inf])}))]
+    return out
+
+
+def _xent_cases():
+    import jax
+    import jax.numpy as jnp
+
+    from repro.models.losses import fused_chunked_xent, next_token_xent
+    out = {}
+    for s, chunk, masked in XENT_CASES:
+        inp = xent_inputs(s, masked)
+        mask = jnp.asarray(inp["mask"]) if masked else None
+        t = jnp.asarray(inp["targets"])
+
+        def fused(x, w):
+            return fused_chunked_xent(x, lambda xc: xc @ w, t, mask,
+                                      chunk=chunk)[0]
+
+        def plain(x, w):
+            return next_token_xent(x @ w, t, mask)[0]
+
+        args = (jnp.asarray(inp["x"]), jnp.asarray(inp["w"]))
+        lf, gf = jax.value_and_grad(fused, argnums=(0, 1))(*args)
+        lp, gp = jax.value_and_grad(plain, argnums=(0, 1))(*args)
+        out[(s, chunk, masked)] = {
+            "fused": (float(lf), np.asarray(gf[0]), np.asarray(gf[1])),
+            "plain": (float(lp), np.asarray(gp[0]), np.asarray(gp[1]))}
+    return out
+
+
+def _loss_and_grads(api, params, batch, eager=False):
+    """``loss_fn``'s value, metrics and gradients, jitted (or, with
+    ``eager``, op by op)."""
+    import contextlib
+
+    import jax
+
+    fn = jax.value_and_grad(lambda p: api.loss_fn(p, batch), has_aux=True)
+    with jax.disable_jit() if eager else contextlib.nullcontext():
+        (loss, metrics), grads = (fn if eager else jax.jit(fn))(params)
+    return {"loss": float(loss),
+            "metrics": {k: float(v) for k, v in metrics.items()},
+            "grads": _np_tree(grads)}
+
+
+def _jax_state(params):
+    import jax.numpy as jnp
+
+    from repro.launch.train import TrainState
+    from repro.optim import adamw_init, loss_scale_init
+    return TrainState(params, adamw_init(params), loss_scale_init(),
+                      jnp.zeros((), jnp.int32))
+
+
+def _jax_step(api, tc):
+    """The oracle of one whole step: ``_grad_step`` then
+    ``_apply_updates`` under a plain ``jax.jit`` (the reference's
+    ``make_train_step`` needs a mesh)."""
+    import jax
+
+    from repro.launch.train import _apply_updates, _grad_step
+
+    def step(state, batch):
+        grads, loss, metrics = _grad_step(api, tc, state, batch)
+        return _apply_updates(api, tc, state, grads, loss, metrics)
+
+    return jax.jit(step)
+
+
+def _train_config(case):
+    from repro.launch.train import TrainConfig
+    from repro.optim import AdamWConfig
+    kw = step_config(case)
+    return TrainConfig(adamw=AdamWConfig(lr=kw.pop("lr")), **kw)
+
+
+def task_train():
+    """Reduced qwen2-0.5b training: the optimizer pieces on
+    ``optim_inputs``, ``fused_chunked_xent`` and ``next_token_xent``
+    values and gradients, ``loss_fn`` and its gradients per policy,
+    ``N_STEPS`` whole steps per ``STEP_CASES`` case (metrics, the state
+    after each step), and a ``TrainState`` checkpoint written after two
+    steps (its files), with the third step from it."""
+    import tempfile
+
+    import jax
+    import jax.numpy as jnp
+
+    from repro.checkpoint import save_checkpoint
+    from repro.models import registry
+
+    base = train_config("bf16")
+    params = registry.build(base).init(jax.random.PRNGKey(0))
+    out = {"params": _np_tree(params), "optim": _optim_cases(),
+           "xent": _xent_cases(), "loss": {}, "steps": {}}
+    tokens = train_tokens(base.vocab, 2, TRAIN_SEQ, 0)
+    mask = train_mask(2, TRAIN_SEQ, 1)
+    for pol in TRAIN_POLICIES:
+        api = registry.build(train_config(pol))
+        out["loss"][(pol, False)] = _loss_and_grads(
+            api, params, {"tokens": jnp.asarray(tokens)})
+        if pol == "bf16":
+            out["loss"][(pol, True)] = _loss_and_grads(
+                api, params, {"tokens": jnp.asarray(tokens),
+                              "mask": jnp.asarray(mask)})
+            out["loss_eager"] = _loss_and_grads(
+                api, params, {"tokens": jnp.asarray(tokens)}, eager=True)
+    for case, (pol, _, b) in STEP_CASES.items():
+        api = registry.build(train_config(pol))
+        step = _jax_step(api, _train_config(case))
+        state = _jax_state(params)
+        metrics, states = [], []
+        for i in range(N_STEPS):
+            batch = {"tokens": jnp.asarray(
+                train_tokens(base.vocab, b, TRAIN_SEQ, 100 + i))}
+            state, m = step(state, batch)
+            metrics.append({k: float(v) for k, v in m.items()})
+            states.append(_np_tree(state))
+        out["steps"][case] = {"metrics": metrics, "states": states}
+    # the checkpoint case: the "plain" steps, saved after the second
+    case = out["steps"]["plain"]
+    api = registry.build(base)
+    state = jax.tree.map(jnp.asarray, case["states"][1])
+    from repro.launch.train import TrainState
+    state = TrainState(*state)
+    with tempfile.TemporaryDirectory() as d:
+        save_checkpoint(d, 2, state, {"note": "reference"})
+        out["checkpoint"] = _dir_bytes(os.path.join(d, f"step_{2:09d}"))
+    return out
+
+
+def task_train_families():
+    """For each of ``TRAIN_FAMILY_ARCHS`` (reduced, bf16): the init
+    params, a batch from the reference's ``materialize_batch`` and
+    ``loss_fn``'s value, metrics and gradients on it."""
+    import jax
+
+    from repro.configs import reduced
+    from repro.configs.base import InputShape
+    from repro.models import registry
+
+    out = {}
+    for arch in TRAIN_FAMILY_ARCHS:
+        cfg = reduced(arch)
+        api = registry.build(cfg)
+        params = api.init(jax.random.PRNGKey(0))
+        batch = registry.materialize_batch(
+            cfg, InputShape("train", TRAIN_SEQ, 2, "train"), seed=3)
+        out[arch] = {"params": _np_tree(params), "batch": _np_tree(batch),
+                     **_loss_and_grads(api, params, batch)}
+    return out
+
+
 TASKS = {"lm": task_lm, "serving": task_serving, "plan": task_plan,
          "checkpoint": task_checkpoint, "router": task_router,
          "arch": task_arch, "rebuild": task_rebuild,
-         "family": task_family, "encdec": task_encdec}
+         "family": task_family, "encdec": task_encdec,
+         "train": task_train, "train_families": task_train_families}
 
 
 if __name__ == "__main__":

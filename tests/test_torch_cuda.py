@@ -11,7 +11,11 @@ fixture, never at import). Tolerances: the exact kernels are
 with its plain version within 2 gamma_K (|x| @ |w|) elementwise, the
 most two f32 summation orders of the same products can differ by
 (gamma_K = K u / (1 - K u), u = 2^-24); ``mp_matmul`` is bit-equal to
-its plain version (compared on the output's bit patterns).
+its plain version (compared on the output's bit patterns). The
+training tests at the end launch no kernel: one train step of each
+reduced family on the card against the CPU, and the trainer CLI killed
+and resumed bit-equal (the step's accumulating backwards are
+deterministic without torch's deterministic mode).
 """
 import dataclasses
 import pathlib
@@ -1375,7 +1379,7 @@ def test_encdec_on_the_card_matches_the_cpu_reduced(cuda, policy):
     from repro_torch.core.policy import get_policy
     from repro_torch.layers.mplinear import executor_variant
     from repro_torch.models import encdec
-    from repro_torch.models.lm import layer_tree
+    from repro_torch.models.lm import unstack
     from repro_torch.serving import graphs
     cpu_params = registry.init_params(reduced("seamless-m4t-medium"),
                                       seed=0, device="cpu")
@@ -1387,7 +1391,7 @@ def test_encdec_on_the_card_matches_the_cpu_reduced(cuda, policy):
     for tree, dev in ((card, cuda), (cpu, "cpu")):
         with torch.no_grad(), executor_variant("fused"):
             blocks.append(encdec.encode_block(
-                layer_tree(tree["enc_blocks"], 0), cfg, x.to(dev),
+                unstack(tree["enc_blocks"])[0], cfg, x.to(dev),
                 torch.arange(8, device=dev)[None].expand(2, 8),
                 get_policy(policy)).cpu())
     assert _rel_rms(*blocks) <= 1e-2
@@ -1626,3 +1630,88 @@ def test_autotune_smoke_on_the_card(cuda, tmp_path, capsys):
     assert capsys.readouterr().out.startswith("autotune smoke OK")
     # 4 projection groups a probe: 2 x (3 + 1 + 2 + 1) projections
     assert tops.launch_counts()["mp_matmul"] - before == 14
+
+
+# one train step, card against CPU: (loss relative, the worst gradient
+# leaf's relative L2, the parameter tree after the step, relative L2),
+# each a few times the reading beside it (an H100 at 700 W). qwen2 and
+# seamless multiply only in f32 (``_dot_f32``) and agree to f32
+# summation order; the others also multiply bf16 by bf16 (rwkv's
+# token-shift mixing, griffin's recurrence gates, the experts' einsums,
+# the vision projector), where the card and the CPU round differently
+TRAIN_CARD_VS_CPU = {
+    "qwen2-0.5b": (1e-6, 1e-5, 1e-7),            # 7.3e-8 1.5e-7 5.0e-9
+    "mixtral-8x7b": (1e-6, 2e-2, 1e-3),          # 6.8e-8 4.3e-3 1.8e-4
+    "rwkv6-1.6b": (1e-6, 2e-2, 1e-3),            # 0      2.1e-3 3.2e-5
+    "recurrentgemma-9b": (1e-6, 2e-2, 1e-3),     # 0      5.4e-3 9.6e-5
+    "internvl2-1b": (1e-6, 2e-2, 1e-3),          # 7.4e-8 3.4e-3 1.1e-4
+    "seamless-m4t-medium": (1e-6, 1e-5, 1e-7),   # 6.7e-8 1.2e-7 3.4e-10
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", list(TRAIN_CARD_VS_CPU))
+def test_train_step_on_the_card_matches_the_cpu(cuda, arch):
+    """One train step of the reduced family (numpy-drawn weights and
+    batch) on the card and on the CPU, both under the trainer's
+    numerics: the loss, each gradient leaf and the parameters after the
+    step within ``TRAIN_CARD_VS_CPU``; no kernel launched."""
+    from repro_torch.configs import InputShape
+    from repro_torch.convert import tree_to
+    from repro_torch.launch import train
+    from repro_torch.optim.tree import tree_leaves
+    cfg = reduced(arch)
+    api = registry.build(cfg)
+    tc = train.TrainConfig(adamw=train.AdamWConfig(lr=1e-3), warmup=1)
+    batch = registry.materialize_batch(
+        cfg, InputShape("train", 16, 2, "train"), seed=3, device="cpu")
+    params = api.init(0, "cpu", draws="numpy")
+    before = tops.launch_counts()
+    got = {}
+    for dev in ("cuda", "cpu"):
+        st = train.init_state(api, tree_to(params, dev))
+        st = st._replace(step=st.step + 1)
+        b = {k: v.to(dev) for k, v in batch.items()}
+        with train.train_numerics():
+            grads, loss, metrics = train.grad_step(api, tc, st, b)
+            new, _ = train.apply_updates(api, tc, st, grads, loss,
+                                         metrics)
+        got[dev] = (float(loss), [g.double().cpu() for g in
+                                  tree_leaves(grads)],
+                    torch.cat([p.double().cpu().ravel()
+                               for p in tree_leaves(new.params)]))
+    assert tops.launch_counts() == before
+    (lc, gc, pc), (lp, gp, pp) = got["cuda"], got["cpu"]
+    loss_tol, grad_tol, param_tol = TRAIN_CARD_VS_CPU[arch]
+    assert lc == pytest.approx(lp, rel=loss_tol)
+
+    def rel(a, b):
+        return float((a - b).norm() / max(float(b.norm()), 1e-30))
+    assert max(rel(a, b) for a, b in zip(gc, gp)) <= grad_tol
+    assert rel(pc, pp) <= param_tol
+
+
+@pytest.mark.cuda
+def test_trainer_cli_on_the_card_resumes_bit_equal(cuda, tmp_path):
+    """The trainer CLI on the card (its default device), reduced
+    qwen2-0.5b: killed by ``fail_at_step`` and resumed, the losses and
+    final state equal an uninterrupted run's bit for bit, with torch's
+    deterministic mode off (the step leaves it as it found it)."""
+    from repro_torch.launch import train
+    from repro_torch.optim.tree import tree_leaves
+    from repro_torch.runtime.fault_tolerance import (WorkerFailure,
+                                                     fail_at_step)
+
+    def args(name):
+        return train.parse_args(["--reduced", "--steps", "8",
+                                 "--ckpt-every", "3",
+                                 "--ckpt-dir", str(tmp_path / name)])
+
+    whole = train.run(args("whole"))
+    with pytest.raises(WorkerFailure):
+        train.run(args("killed"), failure_hook=fail_at_step(5))
+    resumed = train.run(args("killed"))
+    assert resumed.losses == whole.losses[3:]
+    for a, b in zip(tree_leaves(resumed.state), tree_leaves(whole.state)):
+        assert a.device.type == "cuda" and torch.equal(a, b)
+    assert not torch.are_deterministic_algorithms_enabled()

@@ -6,9 +6,10 @@ fallback, and no compiler needed to import it.
   syntax tree, and by importing the whole package in a fresh interpreter
   and reading ``sys.modules``. Importing it loads no kernel either.
   The plan, checkpoint, fabric and router modules, the sweep engine,
-  studies, examples and tools, and the planner's search, its command
-  line and ``plan_report``, are also imported first, each in a fresh
-  interpreter.
+  studies, examples and tools, the planner's search, its command
+  line and ``plan_report``, and the training stack (optimizer, data
+  stream, losses, trainer, ``examples.train_lm``) are also imported
+  first, each in a fresh interpreter.
 * Entry points default to CUDA: without a CUDA device and without an
   explicit ``device="cpu"`` they raise (the engine, ``init_params``,
   calibration, ``build_engine``, ``build_replicas`` and
@@ -16,7 +17,8 @@ fallback, and no compiler needed to import it.
   studies and examples that compute with torch (``fig3_error``,
   ``quickstart``, ``serve_lm``), and the planner's ``search``, ``score``
   and ``smoke`` (its accuracy objective takes the device, with or
-  without the probe) and ``plan_act_scales``. Every architecture
+  without the probe) and ``plan_act_scales``, and the trainer CLI,
+  ``examples.train_lm``, the data stream and ``materialize_batch``. Every architecture
   of the reference's zoo builds, and its parameter tree resolves to
   policy paths that its projection groups cover.
 * Without ``nvcc`` the kernel loader raises a clear error; it never
@@ -39,7 +41,7 @@ import torch
 
 from repro_torch import device as tdevice
 from repro_torch.checkpoint import restore_checkpoint
-from repro_torch.configs import get_config, reduced
+from repro_torch.configs import InputShape, get_config, reduced
 from repro_torch.fabric import build_engine, save_engine_checkpoint
 from repro_torch.kernels import _build
 from repro_torch.kernels import ops as tops
@@ -412,6 +414,50 @@ def test_planner_raises_without_cuda_unless_asked_for_cpu(no_cuda, tmp_path,
     with pytest.raises(RuntimeError, match="device='cpu'"):
         cli.plan_act_scales(plan)
     assert cli.plan_act_scales(plan, device="cpu")
+
+
+TRAINING_MODULES = (
+    "repro_torch.optim", "repro_torch.optim.adamw",
+    "repro_torch.optim.schedule", "repro_torch.optim.loss_scale",
+    "repro_torch.optim.tree", "repro_torch.data",
+    "repro_torch.data.pipeline", "repro_torch.models.losses",
+    "repro_torch.launch", "repro_torch.launch.train",
+    "repro_torch.launch.serve", "repro_torch.examples.train_lm")
+
+
+def test_training_modules_stand_alone():
+    """The optimizer, the data stream, the losses, the trainer and its
+    example, each imported first in a fresh interpreter, as above."""
+    _imports_alone(TRAINING_MODULES)
+
+
+def test_training_entry_points_raise_without_cuda_unless_asked_for_cpu(
+        no_cuda, tmp_path, capsys):
+    """The trainer CLI, ``examples/train_lm`` and the data stream take
+    their device like every entry point: CUDA by default, raising
+    without it; ``--device cpu`` / ``device="cpu"`` runs on the CPU."""
+    from repro_torch.data.pipeline import DataConfig, SyntheticLMDataset
+    from repro_torch.examples import train_lm
+    from repro_torch.launch import train
+    argv = ["--reduced", "--steps", "1", "--ckpt-dir", str(tmp_path / "t")]
+    for fn, args in ((train.main, argv),
+                     (train_lm.main, ["--steps", "1", "--ckpt-dir",
+                                      str(tmp_path / "e")])):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            fn(args)
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            fn(args + ["--device", "cuda"])
+    assert capsys.readouterr().out == ""
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        SyntheticLMDataset(DataConfig(vocab=16, seq_len=4, global_batch=2))
+    cfg = reduced("qwen2-0.5b")
+    shape = InputShape("t", 4, 2, "train")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        registry.materialize_batch(cfg, shape)
+    assert registry.materialize_batch(cfg, shape, device="cpu")[
+        "tokens"].device == torch.device("cpu")
+    train.main(argv + ["--device", "cpu"])
+    assert capsys.readouterr().out.startswith("arch=qwen2-0.5b steps=1 ")
 
 
 FABRIC_MODULES = (

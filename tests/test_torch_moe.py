@@ -251,9 +251,9 @@ def test_prepared_experts_forward_matches_reference(mixtral, dispatch,
         rparams, ref_policy.get_policy(policy))
     tprep = registry.build(reduced("mixtral-8x7b")).prepare(
         tparams, port_policy.get_policy(policy))
-    from repro_torch.models.lm import layer_tree
+    from repro_torch.models.lm import unstack
     rp = jax.tree.map(lambda a: a[0], rprep["blocks"]["b0"]["moe"])
-    tp = layer_tree(tprep["blocks"]["b0"]["moe"], 0)
+    tp = unstack(tprep["blocks"]["b0"]["moe"])[0]
     rc = dataclasses.replace(ref_moe.MoEConfig(
         ref_cfg.d_model, ref_cfg.moe.d_expert, ref_cfg.moe.n_experts,
         ref_cfg.moe.top_k, ref_cfg.moe.capacity_factor, ref_cfg.act),
