@@ -219,7 +219,8 @@ each printing one line that starts with ``phase``:
    (asserted: every counter stays 0 through the phase): (a) qwen2-0.5b
    at full width (weights from seed 0) through the trainer CLI's code
    path (``repro_torch.launch.train.run``: FaultTolerantLoop, a
-   checkpoint at the last step), ``bf16``, batch 8 of 128 tokens of
+   checkpoint at the last step, the state as DTensors on the CLI's
+   (1, 1) mesh), ``bf16, batch 8 of 128 tokens of
    the Markov stream, 30 steps at ``--lr 3e-3``: every loss finite,
    every step's ``finite`` 1, the mean of the last five losses below
    the first five's; the median step ms over steps 2-29 (the card
@@ -242,6 +243,24 @@ each printing one line that starts with ``phase``:
    five pairs of alternating order: the median and quartiles of each
    mode's step ms, and whether the runs are bit-equal (the trainer's,
    without the mode, must repeat and give the mode's bits).
+19. sharding on a one-card mesh: a one-rank NCCL process group and a
+   (1, 1) ("data", "model") ``DeviceMesh``, destroyed at the end. (a)
+   full-width qwen2-0.5b, ``bf16``, phase 18's state at step 0 and its
+   first batches: 3 steps of ``make_train_step(api, tc, mesh)`` on
+   DTensors (every leaf asserted one) beside 3 plain steps, twice each
+   in turns: equal losses and the state within ``MESH_TRAIN_PARAM_BOUND``
+   (0: bit-equal); each step's ms against the plain step's and phase
+   18's, and each run's peak memory above its start; (b)
+   ``make_serve_fns`` under ``fidelity_fp16_ipu`` and ``fidelity_int8``
+   (raw weights): 8 prompts prefilled, 16 greedy tokens, streams equal
+   to the plain ``api.prefill``/``api.decode_step`` loop's; ``mp_matmul``
+   and ``qmm`` launched on local shards exactly 168 times a forward
+   (asserted), tok/s of both; (c) a checkpoint of the plain state
+   (full widths, 2 layers) restored onto the mesh by
+   ``FaultTolerantLoop.run(shardings=)``, 4 steps, then the same run
+   killed at step 3 and resumed by a new loop: losses and state
+   bit-equal to the uninterrupted run's. Its launches join the kernel
+   table.
 
 Phases 8-13 assert that f32 matmuls do not run on TF32 (a TF32
 router moves expert selection); each phase frees its model before the
@@ -4550,6 +4569,315 @@ def phase_train(smi):
         launches=launches, phase_s=time.perf_counter() - t_phase)
 
 
+# ------------------------------------------------ phase 19: meshes
+
+MESH_TRAIN_STEPS = 3
+MESH_SERVE_PROMPT = 32
+MESH_SERVE_NEW = 16
+MESH_SERVE_POLICIES = {"fidelity_fp16_ipu": ("mp_matmul",),
+                       "fidelity_int8": ("qmm", "fused_qmm")}
+# (c) runs full widths at this depth: its checkpoints hold the f32 state
+# (parameters and both moments), about 2 GB at 2 layers
+MESH_RESTORE_LAYERS = 2
+MESH_RESTORE_STEPS = 4
+
+
+def _dtensor_faults(tree):
+    """Paths of the leaves of ``tree`` that are not DTensors."""
+    from torch.distributed.tensor import DTensor
+    from repro_torch.parallel import sharding as shd
+    bad = []
+    shd.tree_map_with_path(
+        lambda path, x: None if isinstance(x, DTensor) else bad.append(path),
+        tree)
+    return bad
+
+
+def _mesh_train(mesh):
+    """(a) full-width qwen2-0.5b, bf16, phase 18's state at step 0 (seed
+    0) and its first batches: ``MESH_TRAIN_STEPS`` sharded steps on the
+    one-card mesh beside as many plain ones (``mesh=None``): losses
+    equal, parameters and moments within ``MESH_TRAIN_PARAM_BOUND``;
+    each step's ms, and each run's peak memory above what was allocated
+    when it started (the plain run's final state is held meanwhile)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticLMDataset
+    from repro_torch.launch import train
+    from repro_torch.models import registry
+    from repro_torch.optim.tree import tree_leaves
+    from repro_torch.parallel import sharding as shd
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH),
+                              precision_policy="bf16")
+    api = registry.build(cfg)
+    tc = train.TrainConfig(adamw=train.AdamWConfig(lr=TRAIN_LR),
+                           total_steps=TRAIN_STEPS)
+    ds = SyntheticLMDataset(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                                       global_batch=TRAIN_BATCH),
+                            device="cuda")
+    batches = [ds.batch(i) for i in range(MESH_TRAIN_STEPS)]
+    out = {}
+    finals = {}
+    for name, mesh_or_none in (("plain", None), ("mesh", mesh),
+                               ("plain_again", None), ("mesh_again", mesh)):
+        _free()
+        state = train.init_state(api, device="cuda")
+        if mesh_or_none is not None:
+            state = train.shard_state(state, mesh_or_none)
+            bad = _dtensor_faults(state)
+            if bad:
+                raise AssertionError(f"state leaves not DTensors: {bad[:5]}")
+        step = train.make_train_step(api, tc, mesh_or_none)
+        torch.cuda.reset_peak_memory_stats()
+        start = torch.cuda.memory_allocated()
+        secs, losses = [], []
+        for b in batches:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = step(state, b)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            losses.append(float(m["loss"]))
+        if mesh_or_none is not None:
+            bad = _dtensor_faults(state)
+            if bad:
+                raise AssertionError(f"stepped leaves not DTensors: "
+                                     f"{bad[:5]}")
+        out[name] = {"step_s": secs, "losses": losses,
+                     "peak_above_start": torch.cuda.max_memory_allocated()
+                     - start}
+        if name in ("plain", "mesh"):
+            finals[name] = [t.detach() for t in tree_leaves(
+                shd.undistribute((state.params, state.opt)))]
+        del state, step
+    p_err = max(float((a.float() - b.float()).abs().max())
+                for a, b in zip(finals["mesh"], finals["plain"]))
+    bit_equal = all(torch.equal(a, b) for a, b in zip(finals["mesh"],
+                                                      finals["plain"]))
+    del finals
+    _free()
+    if out["mesh"]["losses"] != out["plain"]["losses"] \
+            or p_err > MESH_TRAIN_PARAM_BOUND:
+        raise AssertionError(f"sharded steps {out['mesh']['losses']} vs "
+                             f"plain {out['plain']['losses']}, state max "
+                             f"abs err {p_err}")
+    ms = {k: statistics.median(v["step_s"][1:]) * 1e3
+          for k, v in out.items()}
+    return {"runs": out, "state_max_abs_err": p_err,
+            "state_bit_equal": bit_equal,
+            "step_ms_after_first": ms,
+            "phase18_step_ms": REPORT["phases"].get("18", {}).get(
+                "full_width", {}).get("step_ms"),
+            "dtensor_overhead_ms": (ms["mesh"] + ms["mesh_again"]
+                                    - ms["plain"] - ms["plain_again"]) / 2}
+
+
+# the sharded steps against the plain ones: one device runs no
+# collective and every op sees the plain step's local tensors, so the
+# reading is 0 (bit-equal); a difference would be a fault
+MESH_TRAIN_PARAM_BOUND = 0.0
+
+
+def _mesh_greedy(prefill, decode, params, prompts, caches, n):
+    """Greedy streams (n tokens: prefill's, then n - 1 decode steps) and
+    the decode steps' seconds."""
+    logits, st = prefill(params, {"tokens": prompts}, caches)
+    full = lambda t: t.full_tensor() if hasattr(t, "full_tensor") else t  # noqa
+    tok = torch.argmax(full(logits), -1).to(torch.int32)
+    toks = [tok]
+    pos = torch.full((prompts.shape[0],), prompts.shape[1],
+                     dtype=torch.int32, device=prompts.device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n - 1):
+        logits, st = decode(params, {"token": tok[:, None], "pos": pos}, st)
+        tok = torch.argmax(full(logits), -1).to(torch.int32)
+        toks.append(tok)
+        pos = pos + 1
+    torch.cuda.synchronize()
+    return torch.stack(toks, 1).cpu(), time.perf_counter() - t0
+
+
+def _mesh_serve(mesh):
+    """(b) ``make_serve_fns`` on the one-card mesh for full-width
+    qwen2-0.5b (weights from seed 0, raw: every projection quantizes or
+    converts its weight per call) under ``MESH_SERVE_POLICIES``: 8
+    prompts of ``MESH_SERVE_PROMPT`` tokens prefilled, then greedy
+    decode to ``MESH_SERVE_NEW`` tokens, beside the plain
+    ``api.prefill``/``api.decode_step`` loop: equal streams, and the
+    policy's kernel launched once per projection per forward on local
+    shards."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import registry
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.serving.engine import make_serve_fns
+    out, launches = {}, {}
+    for policy, names in MESH_SERVE_POLICIES.items():
+        cfg = dataclasses.replace(get_config(TRAIN_ARCH),
+                                  precision_policy=policy)
+        api = registry.build(cfg)
+        params = api.init(0, "cuda")
+        prompts = torch.from_numpy(np.random.default_rng(19).integers(
+            0, 1000, (8, MESH_SERVE_PROMPT), dtype=np.int32)).cuda()
+        cache_len = MESH_SERVE_PROMPT + MESH_SERVE_NEW
+        prefill, decode, _, p_sh = make_serve_fns(
+            api, mesh, {"tokens": registry.Spec(tuple(prompts.shape),
+                                                torch.int32)},
+            cache_len, 8)
+        placed = shd.distribute(params, p_sh)
+        forwards = MESH_SERVE_NEW            # one prefill, n - 1 decodes
+        projections = 7 * cfg.n_layers
+        ops.reset_launch_counts()
+        toks, dec_s = _mesh_greedy(prefill, decode, placed, prompts,
+                                   api.init_cache(8, cache_len, "cuda"),
+                                   MESH_SERVE_NEW)
+        got = {k: v for k, v in ops.launch_counts().items() if v}
+        ops.reset_launch_counts()
+        with torch.no_grad():
+            ref, ref_s = _mesh_greedy(api.prefill, api.decode_step, params,
+                                      prompts, api.init_cache(
+                                          8, cache_len, "cuda"),
+                                      MESH_SERVE_NEW)
+        ref_launches = {k: v for k, v in ops.launch_counts().items() if v}
+        ops.reset_launch_counts()
+        n = sum(got.get(k, 0) for k in names)
+        if n != projections * forwards or got != ref_launches:
+            raise AssertionError(
+                f"{policy}: the mesh run launched {got} (want "
+                f"{projections * forwards} of {names}), the plain run "
+                f"{ref_launches}")
+        if not torch.equal(toks, ref):
+            raise AssertionError(f"{policy}: mesh streams {toks.tolist()} "
+                                 f"vs plain {ref.tolist()}")
+        for k in names:
+            launches[k] = launches.get(k, 0) + got.get(k, 0)
+        out[policy] = {
+            "launches": got, "plain_launches": ref_launches,
+            "streams_equal": True,
+            "decode_tok_s": 8 * (MESH_SERVE_NEW - 1) / dec_s,
+            "plain_decode_tok_s": 8 * (MESH_SERVE_NEW - 1) / ref_s}
+        del params, placed, api, prefill, decode
+        _free()
+    return out, launches
+
+
+def _mesh_restore(mesh, tmp):
+    """(c) a checkpoint saved from the plain state (full widths,
+    ``MESH_RESTORE_LAYERS`` layers) restored onto the mesh by
+    ``FaultTolerantLoop.run(shardings=)``; ``MESH_RESTORE_STEPS`` sharded
+    steps with checkpoints every 2, then the same run killed at step 3
+    (no restarts left) and resumed by a new loop from the step-2
+    checkpoint: the resumed losses and final state equal the
+    uninterrupted run's."""
+    import shutil
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticLMDataset
+    from repro_torch.launch import train
+    from repro_torch.models import registry
+    from repro_torch.optim.tree import tree_leaves
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.runtime.fault_tolerance import (FTConfig,
+                                                     FaultTolerantLoop,
+                                                     WorkerFailure,
+                                                     fail_at_step)
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH),
+                              precision_policy="bf16",
+                              n_layers=MESH_RESTORE_LAYERS)
+    api = registry.build(cfg)
+    tc = train.TrainConfig(adamw=train.AdamWConfig(lr=TRAIN_LR),
+                           total_steps=MESH_RESTORE_STEPS)
+    ds = SyntheticLMDataset(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                                       global_batch=TRAIN_BATCH),
+                            device="cuda")
+    plain = train.init_state(api, seed=1, device="cuda")
+    shardings = train.state_shardings(plain, mesh)
+    whole_dir, killed_dir = (os.path.join(tmp, n) for n in ("whole",
+                                                            "killed"))
+    t0 = time.perf_counter()
+    CheckpointManager(whole_dir).save(0, plain)
+    save_s = time.perf_counter() - t0
+    shutil.copytree(os.path.join(whole_dir, f"step_{0:09d}"),
+                    os.path.join(killed_dir, f"step_{0:09d}"))
+    step_fn = train.make_train_step(api, tc, mesh)
+    # the loops start from a state they replace by the checkpoint: zeros
+    # on the mesh, so a missed restore shows
+    blank = shd.distribute(train.TrainState(
+        *(shd.zip_map(lambda x, _: torch.zeros_like(x), part, part)
+          for part in plain)), shardings)
+
+    def loop(path, **kw):
+        return FaultTolerantLoop(step_fn, ds.batch, path,
+                                 FTConfig(checkpoint_every=2,
+                                          max_restarts=0), **kw)
+
+    t0 = time.perf_counter()
+    whole = loop(whole_dir)
+    st_whole, n_whole = whole.run(blank, 0, MESH_RESTORE_STEPS,
+                                  shardings=shardings)
+    whole_s = time.perf_counter() - t0
+    killed = loop(killed_dir, failure_hook=fail_at_step(3))
+    try:
+        killed.run(blank, 0, MESH_RESTORE_STEPS, shardings=shardings)
+        raise AssertionError("fail_at_step(3) did not kill the run")
+    except WorkerFailure:
+        pass
+    resumed = loop(killed_dir)
+    st_res, n_res = resumed.run(blank, 0, MESH_RESTORE_STEPS,
+                                shardings=shardings)
+    bad = _dtensor_faults(st_res) + _dtensor_faults(st_whole)
+    l_whole = [h["loss"] for h in whole.history]
+    l_killed = [h["loss"] for h in killed.history]
+    l_res = [h["loss"] for h in resumed.history]
+    equal = (n_res == n_whole == MESH_RESTORE_STEPS and not bad
+             and [h["step"] for h in resumed.history] == [2, 3]
+             and l_killed[:2] + l_res == l_whole
+             and all(torch.equal(a, b) for a, b in zip(
+                 tree_leaves(shd.undistribute(st_res)),
+                 tree_leaves(shd.undistribute(st_whole)))))
+    if not equal:
+        raise AssertionError(f"resumed {l_res} (steps {n_res}, non-DTensor "
+                             f"leaves {bad[:5]}) vs whole {l_whole}")
+    del plain, blank, st_whole, st_res
+    _free()
+    return {"bit_equal": equal, "losses": l_whole,
+            "killed_losses": l_killed, "resumed_losses": l_res,
+            "plain_save_s": save_s, "whole_run_s": whole_s,
+            "layers": MESH_RESTORE_LAYERS}
+
+
+def phase_mesh(smi):
+    """Sharding on a one-card mesh (see the module docstring, phase 19)."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_single_device_mesh
+    t_phase = time.perf_counter()
+    _no_tf32()
+    parts = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group(
+            "nccl", init_method="file://" + os.path.join(tmp, "rendezvous"),
+            rank=0, world_size=1)
+        try:
+            torch.cuda.set_device(0)
+            mesh = make_single_device_mesh("cuda")
+            t0 = time.perf_counter()
+            train_out = _mesh_train(mesh)
+            parts["train_s"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            serve_out, launches = _mesh_serve(mesh)
+            parts["serve_s"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            restore_out = _mesh_restore(mesh, tmp)
+            parts["restore_s"] = time.perf_counter() - t0
+        finally:
+            dist.destroy_process_group()
+    _no_tf32()
+    log(19, card=smi, mesh=[[1, 1], ["data", "model"]], train=train_out,
+        serve=serve_out, restore=restore_out, launches=launches,
+        parts_s=parts, phase_s=time.perf_counter() - t_phase)
+    return launches
+
+
 # ---------------------------------------------------------------- main
 
 KERNELS = {
@@ -4619,6 +4947,7 @@ def main():
     launches16 = phase_planner(smi)
     launches17 = phase_fabric(smi, get_config("qwen2-0.5b"))
     phase_train(smi)
+    launches19 = phase_mesh(smi)
 
     main_launches = {
         "fused_dequant_mm": launches3["fused_dequant_mm"]
@@ -4629,11 +4958,13 @@ def main():
         + launches15["fused_dequant_mm"] + launches16["fused_dequant_mm"]
         + launches17["fused_dequant_mm"],
         "fused_qmm": launches4["fidelity_int8"]["fused_qmm"]
-        + launches4["int4_exact"]["fused_qmm"] + launches14["fused_qmm"],
-        "qmm": launches4["fidelity_int8"]["qmm"] + launches14["qmm"],
+        + launches4["int4_exact"]["fused_qmm"] + launches14["fused_qmm"]
+        + launches19.get("fused_qmm", 0),
+        "qmm": launches4["fidelity_int8"]["qmm"] + launches14["qmm"]
+        + launches19.get("qmm", 0),
         "qmm_packed": launches4["int4_exact"]["qmm_packed"],
         "mp_matmul": launches6["mp_matmul"] + launches15["mp_matmul"]
-        + launches16["mp_matmul"],
+        + launches16["mp_matmul"] + launches19["mp_matmul"],
     }
     kernels = []
     for kname, (source, replaces) in KERNELS.items():

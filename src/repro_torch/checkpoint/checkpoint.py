@@ -35,6 +35,14 @@ the tree is rebuilt: a damaged checkpoint raises :class:`ChecksumError`
 naming the leaf. A missing step raises :class:`CheckpointNotFound`.
 Restored leaves go to host numpy, then onto ``device`` (CUDA unless the
 caller passes ``device="cpu"``; without CUDA that default raises).
+
+Sharded trees (DTensor leaves, ``parallel.sharding``): saving gathers
+every leaf whole (``full_tensor``, a collective every rank joins), rank
+0 writes the same bytes a plain save writes, and the other ranks wait at
+a barrier, so either package restores it. ``shardings=`` (a
+``NamedSharding`` tree) restores each leaf onto its mesh at its
+placements, each rank keeping its own shard; the topology may differ
+from the one that saved.
 """
 from __future__ import annotations
 
@@ -49,6 +57,7 @@ import torch
 
 from repro_torch.checkpoint import _msgpack
 from repro_torch.device import resolve_device
+from repro_torch.parallel import sharding as shd
 
 MANIFEST_VERSION = 2
 
@@ -114,12 +123,36 @@ def _leaf_bytes(arr: np.ndarray) -> bytes:
     return np.ascontiguousarray(arr).tobytes()
 
 
+def _writer(tree) -> bool:
+    """False on the ranks other than 0 of a sharded tree's save."""
+    import torch.distributed as dist
+    return not (shd.has_dtensor(tree) and dist.is_initialized()
+                and dist.get_rank() != 0)
+
+
 def save_checkpoint(directory: str, step: int, tree: Any,
                     metadata: Optional[Dict] = None) -> str:
-    """Atomic: stage into .tmp, write arrays + manifest, rename."""
+    """Atomic: stage into .tmp, write arrays + manifest, rename. A
+    sharded tree is gathered whole on every rank and written by rank 0
+    alone; every rank returns after the write."""
+    final = os.path.join(directory, f"step_{step:09d}")
+    if shd.has_dtensor(tree):
+        import torch.distributed as dist
+        writer = _writer(tree)
+        full = shd.undistribute(tree)
+        if writer:
+            _write(directory, final, step, full, metadata)
+        if dist.is_initialized():
+            dist.barrier()
+        return final
+    _write(directory, final, step, tree, metadata)
+    return final
+
+
+def _write(directory: str, final: str, step: int, tree: Any,
+           metadata: Optional[Dict]):
     from repro_torch.quant.prepare import tree_manifest
     os.makedirs(directory, exist_ok=True)
-    final = os.path.join(directory, f"step_{step:09d}")
     tmp = final + ".tmp"
     if os.path.exists(tmp):
         shutil.rmtree(tmp)
@@ -148,7 +181,6 @@ def save_checkpoint(directory: str, step: int, tree: Any,
         # the old step first (the staged copy is complete)
         shutil.rmtree(final)
     os.replace(tmp, final)  # atomic on POSIX
-    return final
 
 
 def list_steps(directory: str) -> List[int]:
@@ -212,7 +244,7 @@ def _to_tensor(manifest: Dict, i: int, arr: np.ndarray,
 
 
 def restore_checkpoint(directory: str, step: int, like: Any = None,
-                       verify: bool = True,
+                       shardings: Any = None, verify: bool = True,
                        device=None) -> Tuple[Any, Dict]:
     """Restore step ``step`` onto ``device`` as ``(tree, metadata)``;
     raises :class:`CheckpointNotFound` if it does not exist and
@@ -221,8 +253,12 @@ def restore_checkpoint(directory: str, step: int, like: Any = None,
     With ``like=None`` the tree rebuilds from the manifest's spec with
     the exact stored dtypes (prepared containers included). With ``like``
     (a tree of tensors) leaves restore into its structure, cast to each
-    reference leaf's dtype."""
+    reference leaf's dtype. With ``shardings`` (a ``NamedSharding`` tree
+    in ``like``'s structure) each leaf is then placed on its mesh, on
+    the mesh's device type unless ``device`` says otherwise."""
     from repro_torch.quant.prepare import tree_from_manifest, tree_manifest
+    if shardings is not None and device is None:
+        device = _mesh_device(shardings)
     device = resolve_device(device)
     manifest, arrays = _load_step(directory, step)
     if verify:
@@ -251,8 +287,17 @@ def restore_checkpoint(directory: str, step: int, like: Any = None,
                 f"leaf {_leaf_path(manifest, i)!r}: shape "
                 f"{tuple(arr.shape)} != {tuple(ref.shape)}")
         restored.append(_to_tensor(manifest, i, arr, device).to(ref.dtype))
-    return (tree_from_manifest(spec, restored, like),
-            manifest["metadata"])
+    tree = tree_from_manifest(spec, restored, like)
+    if shardings is not None:
+        tree = shd.distribute(tree, shardings)
+    return tree, manifest["metadata"]
+
+
+def _mesh_device(shardings) -> str:
+    """The device type of the first mesh in a ``NamedSharding`` tree."""
+    found = []
+    shd.tree_map_with_path(lambda _, s: found.append(s), shardings)
+    return found[0].mesh.device_type
 
 
 class CheckpointManager:
@@ -264,7 +309,8 @@ class CheckpointManager:
 
     def save(self, step: int, tree: Any, metadata: Optional[Dict] = None):
         path = save_checkpoint(self.directory, step, tree, metadata)
-        self._gc()
+        if _writer(tree):
+            self._gc()
         return path
 
     def _gc(self):
@@ -279,9 +325,10 @@ class CheckpointManager:
                 shutil.rmtree(os.path.join(self.directory, name),
                               ignore_errors=True)
 
-    def restore_latest(self, like: Any = None, missing_ok: bool = False,
-                       device=None):
-        """Restore the newest step as ``(step, tree, metadata)``.
+    def restore_latest(self, like: Any = None, shardings: Any = None,
+                       missing_ok: bool = False, device=None):
+        """Restore the newest step as ``(step, tree, metadata)``, placed
+        by ``shardings`` when given (``restore_checkpoint``).
 
         Raises :class:`CheckpointNotFound` when the directory holds no
         checkpoint; ``missing_ok=True`` returns ``(None, None, {})``
@@ -293,5 +340,5 @@ class CheckpointManager:
             raise CheckpointNotFound(
                 f"no checkpoint under {self.directory!r}")
         tree, meta = restore_checkpoint(self.directory, step, like,
-                                        device=device)
+                                        shardings, device=device)
         return step, tree, meta

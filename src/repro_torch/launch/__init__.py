@@ -1,3 +1,3 @@
-"""Launchers of the port (mirror of ``repro/launch``): the one-device
-trainer (``train``) and the serving names' compatibility module
-(``serve``)."""
+"""Launchers of the port (mirror of ``repro/launch``): device meshes
+(``mesh``), the trainer (``train``) and the serving names'
+compatibility module (``serve``)."""

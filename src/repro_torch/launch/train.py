@@ -1,16 +1,20 @@
-"""Training step and CLI trainer on one device (mirror of
-``repro/launch/train.py``).
+"""Training step and CLI trainer (mirror of ``repro/launch/train.py``).
 
 ``make_train_step`` builds the step: forward, gradients, optional
 microbatch accumulation and dynamic loss scaling, then AdamW under the
-warmup-cosine schedule. The reference's step is a jitted SPMD program
-over a device mesh with donated, sharded state; the port's runs on one
-device, takes no mesh or a one-device one, and is functional (it
-returns a new state and leaves the old one intact, so
-``FaultTolerantLoop`` can replay from it). Its kernels are PyTorch's:
-the training path launches none of the port's hand-written kernels, as
-the reference's reaches none of its Pallas kernels (none has a
-backward).
+warmup-cosine schedule. It is functional: it returns a new state and
+leaves the old one intact, so ``FaultTolerantLoop`` can replay from it.
+With ``mesh=None`` it runs on plain tensors on one device. With a
+``DeviceMesh`` (``launch.mesh``) it is the sharded step: the state lives
+as DTensors placed by ``parallel.sharding`` (parameters and AdamW
+moments over 'data' and 'model', loss scale and step replicated), the
+global batch over the data axes, and the model's activation constraints
+and per-row regions (``parallel.act_sharding``) place everything in
+between; the loss is the mean over the global batch. The reference's
+step is a jitted SPMD program with donated buffers; the port's is
+eager. Its kernels are PyTorch's: the training path launches none of
+the port's hand-written kernels, as the reference's reaches none of its
+Pallas kernels (none has a backward).
 
 Numerics (:func:`train_numerics`, around every step): TF32 off, as the
 reference multiplies in f32. torch's deterministic mode stays as the
@@ -21,10 +25,15 @@ repeats itself bit for bit and a killed run resumes onto the
 uninterrupted run's bits. ``chip_smoke.py`` phase 18 (e) checks that
 at full width and measures what the mode would cost.
 
-CLI (one device; CUDA unless ``--device cpu``):
+CLI (CUDA unless ``--device cpu``):
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-0.5b \\
         [--reduced] --steps 30 --batch 8 --seq 128 --ckpt-dir DIR
+
+It trains on the reference's mesh: ``(1, world)`` ("data", "model") when
+the process group has more than one rank, else ``(1, 1)``; without a
+process group it starts one of one rank (NCCL on CUDA, gloo on the CPU)
+and ends it after.
 
 It prints the reference's closing line: ``arch=... steps=... time=...s
 loss[0]=... loss[-1]=... markov_entropy=...``.
@@ -35,6 +44,7 @@ import argparse
 import contextlib
 import dataclasses
 import os
+import shutil
 import tempfile
 import time
 from typing import Any, Callable, Dict, List, NamedTuple, Optional
@@ -42,12 +52,15 @@ from typing import Any, Callable, Dict, List, NamedTuple, Optional
 import numpy as np
 import torch
 
+from repro_torch.launch.mesh import make_mesh
 from repro_torch.models import registry
 from repro_torch.optim import (AdamWConfig, AdamWState, LossScaleState,
                                adamw_init, adamw_update, grads_finite,
                                loss_scale_init, loss_scale_update,
                                warmup_cosine)
 from repro_torch.optim.tree import flatten, tree_map
+from repro_torch.parallel import sharding as shd
+from repro_torch.parallel.act_sharding import is_dtensor
 
 
 class TrainState(NamedTuple):
@@ -80,6 +93,23 @@ def init_state(api: registry.ModelAPI, params=None, seed: int = 0,
                       torch.zeros((), dtype=torch.int32, device=dev))
 
 
+def state_shardings(state: TrainState, mesh) -> TrainState:
+    """``NamedSharding`` tree of a state: parameters by ``param_pspec``,
+    AdamW's moments by ``opt_shardings`` (its step replicated), the loss
+    scale and the step replicated."""
+    rep = shd.replicated(mesh)
+    return TrainState(
+        params=shd.param_shardings(state.params, mesh),
+        opt=shd.opt_shardings(state.opt, mesh),
+        loss_scale=LossScaleState(rep, rep),
+        step=rep)
+
+
+def shard_state(state: TrainState, mesh) -> TrainState:
+    """``state`` as DTensors on ``mesh`` (``state_shardings``)."""
+    return shd.distribute(state, state_shardings(state, mesh))
+
+
 def _grad_once(api, tc: TrainConfig, state: TrainState, batch):
     leaves, unflatten = flatten(state.params)
     with torch.enable_grad():
@@ -88,13 +118,20 @@ def _grad_once(api, tc: TrainConfig, state: TrainState, batch):
         target = loss * state.loss_scale.scale if tc.use_loss_scaling \
             else loss
         grads = torch.autograd.grad(target, live, allow_unused=True)
-    grads = [torch.zeros_like(p) if g is None else g
+    grads = [torch.zeros_like(p) if g is None else _like(g, p)
              for p, g in zip(leaves, grads)]
     if tc.use_loss_scaling:
         inv = 1.0 / state.loss_scale.scale
         grads = [g.to(torch.float32) * inv for g in grads]
     return (unflatten(grads), loss.detach(),
             {k: v.detach() for k, v in metrics.items()})
+
+
+def _like(g, p):
+    """A DTensor gradient at its parameter's placements."""
+    if not is_dtensor(p) or tuple(g.placements) == tuple(p.placements):
+        return g
+    return g.redistribute(p.device_mesh, p.placements)
 
 
 def grad_step(api: registry.ModelAPI, tc: TrainConfig, state: TrainState,
@@ -168,32 +205,41 @@ def train_numerics():
         torch.backends.cudnn.allow_tf32 = prev[1]
 
 
-def _mesh_size(mesh) -> int:
-    if mesh is None:
-        return 1
-    size = getattr(mesh, "size", None)
-    if callable(size):
-        return int(size())
-    return int(size) if size is not None else len(mesh)
-
-
 def make_train_step(api: registry.ModelAPI, tc: TrainConfig = TrainConfig(),
                     mesh=None) -> Callable:
-    """``step(state, batch) -> (new state, metrics)`` on one device.
-    ``mesh`` may be None or a one-device mesh (anything with ``size`` 1,
-    e.g. a ``torch.distributed.DeviceMesh``); a larger one raises, as
-    sharded training is not ported."""
-    if _mesh_size(mesh) != 1:
-        raise NotImplementedError(
-            f"the port trains on one device; a mesh of {_mesh_size(mesh)} "
-            f"devices needs sharded training, which is not ported")
+    """``step(state, batch) -> (new state, metrics)``.
+
+    ``mesh=None``: plain tensors on one device. A ``DeviceMesh`` (any
+    size, one device included): the state is placed by
+    :func:`state_shardings` and the global batch (the same full tensors
+    on every rank, or DTensors) by ``batch_shardings``, both only where
+    they are not there already; the new state comes back so placed, the
+    metrics as plain tensors, equal on every rank. Every rank calls the
+    step."""
+    if mesh is not None and not hasattr(mesh, "mesh_dim_names"):
+        raise TypeError(f"mesh must be a torch.distributed DeviceMesh or "
+                        f"None, not {type(mesh).__name__}")
 
     def step(state: TrainState, batch):
         with train_numerics():
             grads, loss, metrics = grad_step(api, tc, state, batch)
             return apply_updates(api, tc, state, grads, loss, metrics)
 
-    return step
+    if mesh is None:
+        return step
+
+    def sharded_step(state: TrainState, batch):
+        from torch.distributed.tensor.experimental import (
+            implicit_replication)
+        shardings = state_shardings(state, mesh)
+        state = shd.distribute(state, shardings)
+        batch = shd.distribute(batch, shd.batch_shardings(batch, mesh))
+        with implicit_replication():
+            new, metrics = step(state, batch)
+        new = shd.distribute(new, shardings)
+        return new, shd.undistribute(metrics)
+
+    return sharded_step
 
 
 # ----------------------------------------------------------------- CLI
@@ -245,23 +291,53 @@ def run(args: argparse.Namespace, wrap_step: Optional[Callable] = None,
         cfg = dataclasses.replace(cfg, precision_policy=args.policy)
     api = registry.build(cfg)
     tc = TrainConfig(adamw=AdamWConfig(lr=args.lr), total_steps=args.steps)
-    step_fn = make_train_step(api, tc)
-    if wrap_step is not None:
-        step_fn = wrap_step(step_fn)
-    state = init_state(api, device=device)
-    ds = SyntheticLMDataset(DataConfig(
-        vocab=cfg.vocab, seq_len=args.seq, global_batch=args.batch),
-        device=device)
-    loop = FaultTolerantLoop(
-        step_fn=step_fn, batch_fn=ds.batch, ckpt_dir=args.ckpt_dir,
-        cfg=FTConfig(checkpoint_every=args.ckpt_every),
-        failure_hook=failure_hook)
-    t0 = time.time()
-    state, step = loop.run(state, 0, args.steps, device=device)
-    dt = time.time() - t0
+    with process_group(device) as world:
+        mesh = make_mesh((1, world) if world > 1 else (1, 1),
+                         ("data", "model"), device)
+        step_fn = make_train_step(api, tc, mesh)
+        if wrap_step is not None:
+            step_fn = wrap_step(step_fn)
+        state = init_state(api, device=device)
+        ds = SyntheticLMDataset(DataConfig(
+            vocab=cfg.vocab, seq_len=args.seq, global_batch=args.batch),
+            device=device)
+        loop = FaultTolerantLoop(
+            step_fn=step_fn, batch_fn=ds.batch, ckpt_dir=args.ckpt_dir,
+            cfg=FTConfig(checkpoint_every=args.ckpt_every),
+            failure_hook=failure_hook)
+        t0 = time.time()
+        state, step = loop.run(shard_state(state, mesh), 0, args.steps,
+                               shardings=state_shardings(state, mesh))
+        dt = time.time() - t0
+        state = shd.undistribute(state)
     return TrainRun(cfg, state, step, dt,
                     [h["loss"] for h in loop.history], loop.history,
                     loop.restarts)
+
+
+@contextlib.contextmanager
+def process_group(device):
+    """The default process group's world size while open. Without a
+    started group it starts one of one rank (NCCL for CUDA, gloo for the
+    CPU; the rendezvous is a file in a temporary directory) and ends it
+    after. On CUDA each rank takes its own card."""
+    import torch.distributed as dist
+    started = not dist.is_initialized()
+    tmp = None
+    if started:
+        tmp = tempfile.mkdtemp(prefix="repro_torch_pg_")
+        dist.init_process_group(
+            "nccl" if device.type == "cuda" else "gloo",
+            init_method="file://" + os.path.join(tmp, "rendezvous"),
+            rank=0, world_size=1)
+    if device.type == "cuda":
+        torch.cuda.set_device(dist.get_rank() % torch.cuda.device_count())
+    try:
+        yield dist.get_world_size()
+    finally:
+        if started:
+            dist.destroy_process_group()
+            shutil.rmtree(tmp, ignore_errors=True)
 
 
 def main(argv=None):

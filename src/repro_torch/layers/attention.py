@@ -20,6 +20,7 @@ import torch
 from repro_torch.layers.common import (Generator, apply_rope, norm_init,
                                        rms_norm, softcap)
 from repro_torch.layers.mplinear import linear_init, mp_linear
+from repro_torch.parallel import act_sharding as act
 
 
 @dataclasses.dataclass(frozen=True)
@@ -92,23 +93,33 @@ def _project_qkv(params, cfg: AttnConfig, x, positions, policy, path,
     (cross-attention), else from ``x``."""
     spec = policy.spec_for
     b, s, _ = x.shape
-    q = mp_linear(params["wq"], x, spec(f"{path}/wq"),
-                  path=f"{path}/wq").reshape(b, s, cfg.n_heads, cfg.head_dim)
+    q = _split_heads(mp_linear(params["wq"], x, spec(f"{path}/wq"),
+                               path=f"{path}/wq"), cfg.n_heads, cfg.head_dim)
     kv_src = x if kv_input is None else kv_input
-    bk, sk, _ = kv_src.shape
-    k = mp_linear(params["wk"], kv_src, spec(f"{path}/wk"),
-                  path=f"{path}/wk").reshape(bk, sk, cfg.n_kv_heads,
-                                             cfg.head_dim)
-    v = mp_linear(params["wv"], kv_src, spec(f"{path}/wv"),
-                  path=f"{path}/wv").reshape(bk, sk, cfg.n_kv_heads,
-                                             cfg.head_dim)
+    k = _split_heads(mp_linear(params["wk"], kv_src, spec(f"{path}/wk"),
+                               path=f"{path}/wk"), cfg.n_kv_heads,
+                     cfg.head_dim)
+    v = _split_heads(mp_linear(params["wv"], kv_src, spec(f"{path}/wv"),
+                               path=f"{path}/wv"), cfg.n_kv_heads,
+                     cfg.head_dim)
     if cfg.qk_norm:
         q = rms_norm(q, params["q_norm"]["w"])
         k = rms_norm(k, params["k_norm"]["w"])
     if not cfg.cross:
         q = apply_rope(q, positions, cfg.rope_theta, cfg.rotary_pct)
         k = apply_rope(k, positions, cfg.rope_theta, cfg.rotary_pct)
-    return q, k, v
+    return act.heads(q), act.heads(k), act.heads(v)
+
+
+def _split_heads(y, n_heads: int, head_dim: int):
+    """(B, S, n_heads * head_dim) -> (B, S, n_heads, head_dim). A
+    DTensor whose features shard over 'model' gathers them first unless
+    'model' divides the heads: DTensor cannot split a sharded dim into
+    uneven head blocks."""
+    b, s, _ = y.shape
+    if act.is_dtensor(y) and n_heads % act.axis_size(y, act.MDL):
+        y = act.constrain(y, act.DP)
+    return y.reshape(b, s, n_heads, head_dim)
 
 
 def _mask(cfg: AttnConfig, q_pos, k_pos, k_valid):
@@ -184,9 +195,43 @@ def _attend_chunked(cfg: AttnConfig, q, k, v, q_pos, k_pos, k_valid):
 
 
 def _attend(cfg: AttnConfig, q, k, v, q_pos, k_pos, k_valid):
-    if q.shape[1] > 1 and k.shape[1] > cfg.chunk_threshold:
-        return _attend_chunked(cfg, q, k, v, q_pos, k_pos, k_valid)
-    return _attend_dense(cfg, q, k, v, q_pos, k_pos, k_valid)
+    """Attention of q (B, Sq, Hq, D) over k, v (B, Sk, Hkv, D) ->
+    (B, Sq, Hq * D). On DTensors it runs per batch row on local tensors
+    (``act.local_rows``): heads and keys gathered whole, rows split over
+    the data axes."""
+    def attend(q, k, v, q_pos, k_pos, k_valid):
+        if q.shape[1] > 1 and k.shape[1] > cfg.chunk_threshold:
+            return _attend_chunked(cfg, q, k, v, q_pos, k_pos, k_valid)
+        return _attend_dense(cfg, q, k, v, q_pos, k_pos, k_valid)
+
+    return act.local_rows(attend, (q, k, v, q_pos, k_pos, k_valid))
+
+
+def _write_slots(buf, rows, slots, val, keep=None):
+    """``buf[rows, slots] = val`` in place, only where ``keep`` (all by
+    default). On a DTensor cache (batch and capacity sharded) each rank
+    writes the entries that fall in its own shard."""
+    if not act.is_dtensor(buf):
+        if keep is None:
+            buf[rows, slots] = val.to(buf.dtype)
+        else:
+            buf[rows, slots] = torch.where(keep, val.to(buf.dtype),
+                                           buf[rows, slots])
+        return
+    from torch.distributed.tensor._utils import (
+        compute_local_shape_and_global_offset)
+    full = lambda t: t.full_tensor() if act.is_dtensor(t) else t  # noqa
+    local = buf.to_local()
+    _, off = compute_local_shape_and_global_offset(
+        buf.shape, buf.device_mesh, buf.placements)
+    rows, slots = torch.broadcast_tensors(full(rows), full(slots))
+    val = full(val).to(buf.dtype).expand(*rows.shape, *buf.shape[2:])
+    lr, ls = rows - off[0], slots - off[1]
+    sel = ((lr >= 0) & (lr < local.shape[0]) & (ls >= 0)
+           & (ls < local.shape[1]))
+    if keep is not None:
+        sel = sel & full(keep).expand(rows.shape)
+    local[lr[sel], ls[sel]] = val[sel]
 
 
 def forward(params, cfg: AttnConfig, x, positions, policy, path,
@@ -223,6 +268,13 @@ def prefill(params, cfg: AttnConfig, x, positions, cache: KVCache, policy,
         k_w, v_w, pos_w = k[:, -cap:], v[:, -cap:], positions[:, -cap:]
     start = (s - cap) % cap if s > cap else 0
     for buf, upd in ((cache.k, k_w), (cache.v, v_w), (cache.pos, pos_w)):
+        if act.is_dtensor(buf):
+            n = upd.shape[1]
+            slots = (start + torch.arange(n, device=x.device)) % cap
+            _write_slots(buf, torch.arange(buf.shape[0],
+                                           device=x.device)[:, None],
+                         slots[None, :], upd)
+            continue
         n_first = min(cap - start, upd.shape[1])
         buf[:, start:start + n_first] = upd[:, :n_first].to(buf.dtype)
         if start:
@@ -243,12 +295,9 @@ def prefill_chunk(params, cfg: AttnConfig, x, positions, valid,
     slot = positions.remainder(cap)
     bidx = torch.arange(x.shape[0], device=x.device)[:, None]
     vk = valid[..., None, None]
-    cache.k[bidx, slot] = torch.where(vk, k.to(cache.k.dtype),
-                                      cache.k[bidx, slot])
-    cache.v[bidx, slot] = torch.where(vk, v.to(cache.v.dtype),
-                                      cache.v[bidx, slot])
-    cache.pos[bidx, slot] = torch.where(valid, positions.to(torch.int32),
-                                        cache.pos[bidx, slot])
+    _write_slots(cache.k, bidx, slot, k, vk)
+    _write_slots(cache.v, bidx, slot, v, vk)
+    _write_slots(cache.pos, bidx, slot, positions, valid)
     out = _attend(cfg, q, cache.k, cache.v, positions, cache.pos,
                   cache.pos >= 0)
     y = mp_linear(params["wo"], out, policy.spec_for(f"{path}/wo"),
@@ -265,9 +314,9 @@ def decode_step(params, cfg: AttnConfig, x, pos, cache: KVCache, policy,
     cap = cache.k.shape[1]
     slot = pos.remainder(cap)
     bidx = torch.arange(x.shape[0], device=x.device)
-    cache.k[bidx, slot] = k[:, 0].to(cache.k.dtype)
-    cache.v[bidx, slot] = v[:, 0].to(cache.v.dtype)
-    cache.pos[bidx, slot] = pos.to(torch.int32)
+    _write_slots(cache.k, bidx, slot, k[:, 0])
+    _write_slots(cache.v, bidx, slot, v[:, 0])
+    _write_slots(cache.pos, bidx, slot, pos)
     out = _attend(cfg, q, cache.k, cache.v, positions, cache.pos,
                   cache.pos >= 0)
     y = mp_linear(params["wo"], out, policy.spec_for(f"{path}/wo"),

@@ -9,6 +9,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.parallel import act_sharding
+
 # an init's source of draws (``seeded_generator``)
 Generator = Union[torch.Generator, np.random.Generator]
 
@@ -19,7 +21,11 @@ def seeded_generator(seed: int, device, draws: str = "torch"):
     on the device and on the torch build). ``draws="numpy"``: numpy's
     PCG64 seeded ``seed``, drawn in float64 on the host and moved to
     ``device``, so every device and installation draws the same weights
-    (slower: for small models)."""
+    (slower: for small models). On the ``meta`` device there is nothing
+    to draw (None): an init there gives shapes and dtypes only, as
+    ``jax.eval_shape`` does."""
+    if torch.device(device).type == "meta":
+        return None
     if draws == "numpy":
         return np.random.default_rng(seed)
     if draws != "torch":
@@ -34,6 +40,8 @@ def _from_numpy(x: np.ndarray, device) -> torch.Tensor:
 
 
 def _trunc_normal(shape, generator: Generator, device) -> torch.Tensor:
+    if generator is None:
+        return torch.empty(shape, dtype=torch.float32, device=device)
     if isinstance(generator, np.random.Generator):
         # redraw what falls outside +-3 until nothing does
         x = generator.standard_normal(shape)
@@ -49,6 +57,8 @@ def _trunc_normal(shape, generator: Generator, device) -> torch.Tensor:
 
 def randn(shape, generator: Generator, device) -> torch.Tensor:
     """Standard normal f32 draws from either source."""
+    if generator is None:
+        return torch.empty(shape, dtype=torch.float32, device=device)
     if isinstance(generator, np.random.Generator):
         return _from_numpy(generator.standard_normal(shape), device)
     return torch.randn(shape, generator=generator, device=device)
@@ -56,6 +66,8 @@ def randn(shape, generator: Generator, device) -> torch.Tensor:
 
 def rand(shape, generator: Generator, device) -> torch.Tensor:
     """Uniform [0, 1) f32 draws from either source."""
+    if generator is None:
+        return torch.empty(shape, dtype=torch.float32, device=device)
     if isinstance(generator, np.random.Generator):
         return _from_numpy(generator.random(shape), device)
     return torch.rand(shape, generator=generator, device=device)
@@ -101,14 +113,27 @@ def layer_norm(x, weight, bias, eps: float = 1e-5):
     return x.to(dt)
 
 
+def embed_lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """``table[tokens]``. On a mesh (a DTensor table) each rank looks up
+    its own token rows in the whole table (``act_sharding.local_rows``:
+    the table gathered, its gradient partial over the data axes), which
+    is exact, and needs no DTensor rule for the indexing or its
+    backward (torch 2.11's rejects the backward's ``index_put``)."""
+    return act_sharding.local_rows(lambda t, w: w[t], (tokens,), (table,))
+
+
 def apply_norm(kind: str, x, params, eps=1e-6):
-    if kind == "rms":
-        return rms_norm(x, params["w"], eps)
-    if kind == "rms_zc":
-        return rms_norm(x, params["w"], eps, zero_centered=True)
-    if kind == "ln":
-        return layer_norm(x, params["w"], params.get("b"), eps)
-    raise ValueError(kind)
+    """The norm ``kind`` of x over its last dim (on a mesh, on each
+    rank's rows: ``act_sharding.local_last_dim``)."""
+    if kind not in ("rms", "rms_zc", "ln"):
+        raise ValueError(kind)
+
+    def norm(x, params):
+        if kind == "ln":
+            return layer_norm(x, params["w"], params.get("b"), eps)
+        return rms_norm(x, params["w"], eps, zero_centered=kind == "rms_zc")
+
+    return act_sharding.local_last_dim(norm, x, (params,))
 
 
 def norm_init(kind: str, d: int, device, dtype=torch.float32, lead=()):
@@ -144,7 +169,15 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
                theta: float = 10000.0, rotary_pct: float = 1.0
                ) -> torch.Tensor:
     """x: (B, S, H, D); positions: (B, S) int. Rotates the first
-    ``rotary_pct * D`` dims (pairwise halves)."""
+    ``rotary_pct * D`` dims (pairwise halves); on a mesh, on each rank's
+    block (``act_sharding.local_last_dim``)."""
+    return act_sharding.local_last_dim(
+        lambda x, pos: _rope(x, pos, theta, rotary_pct), x,
+        rows=(positions,))
+
+
+def _rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+          rotary_pct: float) -> torch.Tensor:
     d = x.shape[-1]
     rot = int(d * rotary_pct)
     rot -= rot % 2

@@ -6,6 +6,7 @@ import torch
 
 from repro_torch.layers.common import Generator, activation, dense_init
 from repro_torch.layers.mplinear import mp_linear
+from repro_torch.parallel import act_sharding
 
 
 def init(generator: Generator, d_model: int, d_ff: int, device,
@@ -26,6 +27,9 @@ def forward(params, x, policy, path: str, act: str = "silu"):
                   path=f"{path}/w_gate")
     u = mp_linear(params["w_up"], x, policy.spec_for(f"{path}/w_up"),
                   path=f"{path}/w_up")
-    h = fn(g.to(torch.float32)).to(u.dtype) * u
-    return mp_linear(params["w_down"], h, policy.spec_for(f"{path}/w_down"),
-                     path=f"{path}/w_down")
+    # elementwise: on a mesh each rank on its own block
+    h = act_sharding.ffn_hidden(act_sharding.local_pointwise(
+        lambda g, u: fn(g.to(torch.float32)).to(u.dtype) * u, g, u))
+    return act_sharding.batch_seq(
+        mp_linear(params["w_down"], h, policy.spec_for(f"{path}/w_down"),
+                  path=f"{path}/w_down"))

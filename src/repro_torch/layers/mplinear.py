@@ -26,6 +26,7 @@ import torch
 from repro_torch.core.policy import PrecisionSpec
 from repro_torch.kernels import ops as kops
 from repro_torch.layers.common import Generator, dense_init
+from repro_torch.parallel.act_sharding import contiguous_strides, is_dtensor
 from repro_torch.quant.prepare import PreparedWeight
 from repro_torch.quant.quantize import (FP_FORMATS, fake_quant, fp_dequantize,
                                         fp_quantize, quantize_symmetric)
@@ -133,9 +134,21 @@ def _note_act_absmax(path: Optional[str], x: torch.Tensor):
 
 def _dot_f32(x: torch.Tensor, w: torch.Tensor, dt) -> torch.Tensor:
     """``jnp.dot(x.astype(dt), w.astype(dt), preferred_element_type=f32)``:
-    operands rounded to ``dt``, products and sums in f32, f32 out."""
+    operands rounded to ``dt``, products and sums in f32, f32 out. A
+    DTensor ``w`` (a head on a mesh) multiplies on local shards with K
+    whole (:func:`on_local_shards`)."""
+    if is_dtensor(w):
+        return on_local_shards(w, x, lambda wl, xl: _dot_f32(xl, wl, dt))
     return torch.matmul(x.to(dt).to(torch.float32),
                         w.to(dt).to(torch.float32))
+
+
+def matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x.f32 @ w.f32`` (a decay LoRA); a DTensor ``w`` multiplies on
+    local shards with K whole (:func:`on_local_shards`)."""
+    if is_dtensor(w):
+        return on_local_shards(w, x, lambda wl, xl: matmul_f32(xl, wl))
+    return x.to(torch.float32) @ w.to(torch.float32)
 
 
 @register_executor("bf16", "fp32")
@@ -276,15 +289,72 @@ def linear_init(generator: Generator, d_in: int, d_out: int,
     return p
 
 
+def on_local_shards(w, x: torch.Tensor, fn: Callable,
+                    columns=()) -> torch.Tensor:
+    """``fn(w_local, x_local, *columns_local)`` for a DTensor weight
+    ``w`` (d_in, d_out) and activations ``x`` (..., d_in), as a DTensor;
+    ``columns`` (a bias) lie along d_out and are cut as its columns.
+
+    The hand-written kernels take plain tensors, and the paper's
+    bounded-alignment product folds K in order, so K is never split:
+    ``w`` is gathered whole along d_in and keeps d_out sharded over
+    'model' where its rule shards it; ``x`` is gathered whole along
+    d_in, and along 'model' where ``w`` keeps d_out there, and keeps
+    its row dims sharded elsewhere. Each rank then computes a block of
+    the product exactly as one device computes it, and the result
+    carries x's row placements and w's d_out placement. Gradients flow:
+    w's local gradient is partial over the mesh dims that split x's
+    rows, x's over the dims that split d_out."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    from repro_torch.parallel.act_sharding import local_at
+    mesh = w.device_mesh
+    nd = x.dim()
+    if not isinstance(x, DTensor):
+        x = DTensor.from_local(x, mesh, [Replicate()] * mesh.ndim,
+                               run_check=False)
+    w_to, x_to, w_grad, x_grad, y_at = [], [], [], [], []
+    for name, wp, xp in zip(mesh.mesh_dim_names, w.placements,
+                            x.placements):
+        keep_n = (name == "model" and isinstance(wp, Shard)
+                  and wp.dim == w.dim() - 1)
+        row = (not keep_n and isinstance(xp, Shard) and xp.dim < nd - 1)
+        w_to.append(Shard(w.dim() - 1) if keep_n else Replicate())
+        x_to.append(xp if row else Replicate())
+        w_grad.append(Partial() if row else w_to[-1])
+        x_grad.append(Partial() if keep_n else x_to[-1])
+        y_at.append(Shard(nd - 1) if keep_n else x_to[-1])
+    col_to = [Shard(0) if isinstance(p, Shard) else Replicate()
+              for p in w_to]
+    col_grad = [Partial() if isinstance(p, Partial) else c
+                for p, c in zip(w_grad, col_to)]
+    y = fn(local_at(w, w_to, w_grad), local_at(x, x_to, x_grad),
+           *(local_at(c, col_to, col_grad) for c in columns))
+    shape = (*x.shape[:-1], w.shape[-1])
+    return DTensor.from_local(y, mesh, y_at, run_check=False,
+                              shape=torch.Size(shape),
+                              stride=contiguous_strides(shape))
+
+
 def mp_linear(params, x: torch.Tensor, spec: PrecisionSpec,
               compute_dtype=torch.bfloat16,
               path: Optional[str] = None) -> torch.Tensor:
     """y = x @ w (+ b) under the precision spec. x: (..., d_in).
-    ``path`` keys the calibration hook's statistics."""
+    ``path`` keys the calibration hook's statistics. A DTensor weight
+    (a sharded model) runs the executor on local shards
+    (:func:`on_local_shards`): the kernels see plain tensors with K
+    whole, so every projection equals the same projection on one
+    device."""
     _note_act_absmax(path, x)
-    y = executor_for(spec.mode, _EXECUTOR_VARIANT)(
-        params["w"], x, spec, compute_dtype)
+    executor = executor_for(spec.mode, _EXECUTOR_VARIANT)
     b = params.get("b")
-    if b is not None:
-        y = y + b.to(y.dtype)
-    return y.to(compute_dtype)
+
+    def linear(w, x, *b):
+        y = executor(w, x, spec, compute_dtype)
+        if b:
+            y = y + b[0].to(y.dtype)
+        return y.to(compute_dtype)
+
+    w = params["w"]
+    if is_dtensor(w):
+        return on_local_shards(w, x, linear, () if b is None else (b,))
+    return linear(w, x, *(() if b is None else (b,)))

@@ -29,6 +29,7 @@ import torch
 from repro_torch.layers.common import (Generator, activation, dense_init,
                                        rand, randn)
 from repro_torch.layers.mplinear import linear_init, mp_linear
+from repro_torch.parallel import act_sharding
 
 _C = 8.0
 
@@ -163,17 +164,24 @@ def _block(params, x, state: RGLRUState, policy, path, recur,
                    path=f"{path}/w_in_rnn")
     gate = mp_linear(params["w_in_gate"], x, sp(f"{path}/w_in_gate"),
                      path=f"{path}/w_in_gate")
-    xr, new_tail = _causal_conv(xr, params["conv_w"], params["conv_b"],
-                                state.conv)
-    a, b = _gates(params, xr)
-    h, h_last = recur(a, b, state.h)
+    def rec(xr, tail, h0, p):
+        xr, new_tail = _causal_conv(xr, p["conv_w"], p["conv_b"], tail)
+        a, b = _gates(p, xr)
+        h, h_last = recur(a, b, h0)
+        return h, h_last, new_tail
+
+    # per row on local tensors on a mesh (act_sharding.local_rows)
+    h, h_last, new_tail = act_sharding.local_rows(
+        rec, (xr, state.conv, state.h),
+        ({k: params[k] for k in ("conv_w", "conv_b", "w_a", "b_a", "w_x",
+                                 "b_x", "lambda")},))
     out = h * activation("gelu")(gate.to(torch.float32))
     out = mp_linear(params["w_out"], out.to(x.dtype), sp(f"{path}/w_out"),
                     path=f"{path}/w_out")
     if not write_state:
         return out, RGLRUState(h_last, new_tail)
-    state.h.copy_(h_last)
-    state.conv.copy_(new_tail)
+    act_sharding.assign(state.h, h_last)
+    act_sharding.assign(state.conv, new_tail)
     return out, state
 
 

@@ -31,7 +31,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.layers.common import Generator, dense_init, randn
-from repro_torch.layers.mplinear import linear_init, mp_linear
+from repro_torch.layers.mplinear import linear_init, matmul_f32, mp_linear
+from repro_torch.parallel import act_sharding
 
 
 @dataclasses.dataclass(frozen=True)
@@ -115,18 +116,15 @@ def _projections(params, cfg: RWKVConfig, x, shifted, policy, path):
     xg = _mix(x, shifted, mu["g"])
     xw = _mix(x, shifted, mu["w"])
     sp = policy.spec_for
-    r = mp_linear(params["w_r"], xr, sp(f"{path}/w_r"),
-                  path=f"{path}/w_r").reshape(b, s, h, n)
-    k = mp_linear(params["w_k"], xk, sp(f"{path}/w_k"),
-                  path=f"{path}/w_k").reshape(b, s, h, n)
-    v = mp_linear(params["w_v"], xv, sp(f"{path}/w_v"),
-                  path=f"{path}/w_v").reshape(b, s, h, n)
+    r = mp_linear(params["w_r"], xr, sp(f"{path}/w_r"), path=f"{path}/w_r")
+    k = mp_linear(params["w_k"], xk, sp(f"{path}/w_k"), path=f"{path}/w_k")
+    v = mp_linear(params["w_v"], xv, sp(f"{path}/w_v"), path=f"{path}/w_v")
     g = mp_linear(params["w_g"], xg, sp(f"{path}/w_g"), path=f"{path}/w_g")
     f32 = torch.float32
-    ww = (torch.tanh(xw.to(f32) @ params["w_lora_a"].to(f32))
-          @ params["w_lora_b"].to(f32) + params["w_bias"].to(f32))
-    w = torch.exp(-torch.exp(ww)).reshape(b, s, h, n)   # decay in (0, 1)
-    return r, k, v, g, w
+    ww = (matmul_f32(torch.tanh(matmul_f32(xw, params["w_lora_a"])),
+                     params["w_lora_b"]) + params["w_bias"].to(f32))
+    w = torch.exp(-torch.exp(ww))                       # decay in (0, 1)
+    return r, k, v, g, w                                # each (B, S, d)
 
 
 def _gate_out(params, x, o, g, policy, path):
@@ -143,12 +141,27 @@ def time_mix(params, cfg: RWKVConfig, x, state: RWKVState, policy,
     """Chunked parallel form over (B, S, d): the output, and the new wkv
     state and time-mix shift (written into ``state`` unless
     ``write_state=False``)."""
-    b, s, d = x.shape
-    h, n = cfg.n_heads, cfg.head_dim
     shifted, x_last = _token_shift(x, state.x_prev_t)
     r, k, v, g, w = _projections(params, cfg, x, shifted, policy, path)
+    o, s0 = act_sharding.local_rows(
+        lambda *a: _wkv_chunked(cfg, *a), (r, k, v, w, state.s),
+        (params["u"],))
+    out = _gate_out(params, x, o, g, policy, path)
+    if not write_state:
+        return out, RWKVState(s0, x_last, state.x_prev_c)
+    act_sharding.assign(state.s, s0)
+    act_sharding.assign(state.x_prev_t, x_last)
+    return out, state
+
+
+def _wkv_chunked(cfg: RWKVConfig, r, k, v, w, s0, u):
+    """The WKV recurrence over (B, S, d) projections from state s0 (B,
+    H, N, N) -> (output (B, S, d) f32, final state)."""
+    b, s, d = r.shape
+    h, n = cfg.n_heads, cfg.head_dim
+    r, k, v, w = (a.reshape(b, s, h, n) for a in (r, k, v, w))
     f32 = torch.float32
-    u = params["u"].to(f32)
+    u = u.to(f32)
 
     c = cfg.chunk
     pad = -s % c
@@ -166,10 +179,9 @@ def time_mix(params, cfg: RWKVConfig, x, state: RWKVState, policy,
     logw = torch.log(torch.clamp(ws, min=1e-38))
     cum = torch.cumsum(logw, dim=2)
     p_all = torch.exp(cum[:, :, -1:])                     # full-chunk decay
-    tri = torch.tril(torch.ones((c, c), dtype=torch.bool, device=x.device),
+    tri = torch.tril(torch.ones((c, c), dtype=torch.bool, device=r.device),
                      diagonal=-1)
 
-    s0 = state.s
     outs = []
     for j in range(nc):
         rs_, ks_, vs_ = rs[:, j], ks[:, j], vs[:, j]
@@ -191,29 +203,31 @@ def time_mix(params, cfg: RWKVConfig, x, state: RWKVState, policy,
             "bihn,bihm->bhnm", ks_ * decay_to_end, vs_)
         outs.append(o_inter + o_intra + o_cur)
     o = torch.stack(outs, 1).reshape(b, nc * c, h, n)[:, :s].reshape(b, s, d)
-    out = _gate_out(params, x, o, g, policy, path)
-    if not write_state:
-        return out, RWKVState(s0, x_last, state.x_prev_c)
-    state.s.copy_(s0)
-    state.x_prev_t.copy_(x_last)
-    return out, state
+    return o, s0
 
 
 def time_mix_step(params, cfg: RWKVConfig, x, state: RWKVState, policy,
                   path: str) -> Tuple[torch.Tensor, RWKVState]:
     """O(1) single-token decode. x: (B, 1, d)."""
-    b, _, d = x.shape
     shifted = state.x_prev_t[:, None].to(x.dtype)
     r, k, v, g, w = _projections(params, cfg, x, shifted, policy, path)
-    f32 = torch.float32
-    u = params["u"].to(f32)
-    r1, k1, v1, w1 = (a[:, 0].to(f32) for a in (r, k, v, w))
-    kv = torch.einsum("bhn,bhm->bhnm", k1, v1)
-    o = torch.einsum("bhn,bhnm->bhm", r1, state.s + u[None, :, :, None] * kv)
-    s_new = state.s * w1[..., None] + kv
-    out = _gate_out(params, x, o.reshape(b, 1, d), g, policy, path)
-    state.s.copy_(s_new)
-    state.x_prev_t.copy_(x[:, -1])
+
+    def wkv_step(r, k, v, w, s, u):
+        b, _, d = r.shape
+        h, n = cfg.n_heads, cfg.head_dim
+        f32 = torch.float32
+        u = u.to(f32)
+        r1, k1, v1, w1 = (a[:, 0].reshape(b, h, n).to(f32)
+                          for a in (r, k, v, w))
+        kv = torch.einsum("bhn,bhm->bhnm", k1, v1)
+        o = torch.einsum("bhn,bhnm->bhm", r1, s + u[None, :, :, None] * kv)
+        return o.reshape(b, 1, d), s * w1[..., None] + kv
+
+    o, s_new = act_sharding.local_rows(wkv_step, (r, k, v, w, state.s),
+                                       (params["u"],))
+    out = _gate_out(params, x, o, g, policy, path)
+    act_sharding.assign(state.s, s_new)
+    act_sharding.assign(state.x_prev_t, x[:, -1])
     return out, state
 
 
@@ -238,5 +252,5 @@ def channel_mix(params, cfg: RWKVConfig, x, state: RWKVState, policy,
     out = (rr * vv.to(torch.float32)).to(x.dtype)
     if not write_state:
         return out, RWKVState(state.s, state.x_prev_t, x_last)
-    state.x_prev_c.copy_(x_last)
+    act_sharding.assign(state.x_prev_c, x_last)
     return out, state

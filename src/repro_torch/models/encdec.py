@@ -33,6 +33,7 @@ from repro_torch.layers.common import (apply_norm, dense_init, embed_init,
                                        norm_init, seeded_generator)
 from repro_torch.layers.mplinear import linear_init, mp_linear
 from repro_torch.models.lm import _embed, _head, remat_wrap, unstack
+from repro_torch.parallel import act_sharding as act
 
 
 def self_cfg(cfg: ModelConfig, causal: bool) -> AttnConfig:
@@ -115,6 +116,10 @@ def encode(params, cfg: ModelConfig, frames, train: bool = False):
     x = mp_linear(params["frontend_proj"],
                   frames.to(getattr(torch, cfg.compute_dtype)),
                   policy.spec_for("frontend_proj"), path="frontend_proj")
+    # on a mesh the projection's features shard over 'model'; the first
+    # LayerNorm's mean over them would leave a partial average that
+    # DTensor's backward cannot turn into the gradient's partial sum
+    x = act.batch_seq(x)
     positions = _positions(x.shape[0], x.shape[1], x)
     step = remat_wrap(lambda bp, h: encode_block(bp, cfg, h, positions,
                                                  policy),

@@ -23,10 +23,11 @@ from repro_torch.core.policy import get_policy
 from repro_torch.device import resolve_device
 from repro_torch.layers import attention, mlp, rglru
 from repro_torch.layers.attention import AttnConfig
-from repro_torch.layers.common import (apply_norm, embed_init, norm_init,
-                                       seeded_generator, softcap)
+from repro_torch.layers.common import (apply_norm, embed_init, embed_lookup,
+                                       norm_init, seeded_generator, softcap)
 from repro_torch.layers.mplinear import _dot_f32
 from repro_torch.models.lm import remat_wrap, unstack
+from repro_torch.parallel import act_sharding as act
 
 
 def _rg_cfg(cfg: ModelConfig) -> rglru.RGLRUConfig:
@@ -125,6 +126,7 @@ def _run(params, cfg: ModelConfig, x, positions, mode: str, caches, pos):
     policy = get_policy(cfg.precision_policy)
     pat, _, n_tail = _pattern(cfg)
     for g, gp in enumerate(unstack(params["blocks"])):
+        x = act.batch_seq(x)
         for i, kind in enumerate(pat):
             c = caches["groups"][f"b{i}"]
             x = _apply_block(gp[f"b{i}"], cfg, kind, x, positions, policy,
@@ -148,6 +150,7 @@ def hidden_states(params, cfg: ModelConfig, tokens):
                           getattr(torch, cfg.compute_dtype))
 
     def group(gp, h):
+        h = act.batch_seq(h)
         for i, kind in enumerate(pat):
             h = _apply_block(gp[f"b{i}"], cfg, kind, h, positions, policy,
                              "train", st, None)
@@ -164,7 +167,8 @@ def hidden_states(params, cfg: ModelConfig, tokens):
 
 
 def _embed(params, cfg: ModelConfig, tokens):
-    return params["embed"]["w"][tokens].to(getattr(torch, cfg.compute_dtype))
+    return embed_lookup(params["embed"]["w"], tokens).to(
+        getattr(torch, cfg.compute_dtype))
 
 
 def _logits(params, cfg: ModelConfig, x):
@@ -175,7 +179,7 @@ def _logits(params, cfg: ModelConfig, x):
     if cfg.padded_vocab != cfg.vocab:
         col = torch.arange(cfg.padded_vocab, device=logits.device)
         logits = logits.masked_fill(col >= cfg.vocab, -1e30)
-    return logits
+    return act.logits(logits)
 
 
 head = _logits

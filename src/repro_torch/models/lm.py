@@ -32,8 +32,10 @@ from repro_torch.device import resolve_device
 from repro_torch.layers import attention, mlp, moe
 from repro_torch.layers.attention import AttnConfig, KVCache
 from repro_torch.layers.common import (apply_norm, dense_init, embed_init,
-                                       norm_init, seeded_generator, softcap)
+                                       embed_lookup, norm_init,
+                                       seeded_generator, softcap)
 from repro_torch.layers.mplinear import _dot_f32
+from repro_torch.parallel import act_sharding as act
 from repro_torch.quant.prepare import PreparedWeight
 
 
@@ -126,11 +128,11 @@ def unstack(tree):
 
 
 def _embed(params, cfg: ModelConfig, tokens):
-    x = params["embed"]["w"][tokens]
+    x = embed_lookup(params["embed"]["w"], tokens)
     x = x.to(getattr(torch, cfg.compute_dtype))
     if cfg.norm == "rms_zc":
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype)
-    return x
+    return act.batch_seq(x)
 
 
 def _head(params, cfg: ModelConfig, x):
@@ -146,7 +148,7 @@ def _head(params, cfg: ModelConfig, x):
     if cfg.padded_vocab != cfg.vocab:
         col = torch.arange(cfg.padded_vocab, device=logits.device)
         logits = logits.masked_fill(col >= cfg.vocab, -1e30)
-    return logits
+    return act.logits(logits)
 
 
 def _apply_block(params, cfg: ModelConfig, kind: str, x, positions, policy,
@@ -193,6 +195,7 @@ def _run_blocks(params, cfg: ModelConfig, x, positions, mode: str, caches,
     policy = get_policy(cfg.precision_policy)
     kinds = group_kinds(cfg)
     for gi, gp in enumerate(unstack(params["blocks"])):
+        x = act.batch_seq(x)  # the reference pins its scan carry (SP)
         for i, kind in enumerate(kinds):
             c = caches[f"b{i}"]
             x, _ = _apply_block(gp[f"b{i}"], cfg, kind, x, positions,
@@ -241,6 +244,7 @@ def train_blocks(params, cfg: ModelConfig, x, positions):
     kinds = group_kinds(cfg)
 
     def group(gp, h, aux):
+        h = act.batch_seq(h)
         for i, kind in enumerate(kinds):
             h, a = _apply_block(gp[f"b{i}"], cfg, kind, h, positions,
                                 policy, "train", None, None)

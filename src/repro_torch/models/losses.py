@@ -13,12 +13,19 @@ from typing import Callable, Dict, Optional, Tuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.parallel import act_sharding
+
 
 def _nll(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
-    """(B, S, V) f32 logits, (B, S) targets -> (B, S) nats."""
-    lse = torch.logsumexp(logits, dim=-1)
-    tgt = torch.gather(logits, -1, targets.long()[..., None])[..., 0]
-    return lse - tgt
+    """(B, S, V) f32 logits, (B, S) targets -> (B, S) nats. On DTensor
+    logits (a mesh) each rank takes its batch rows with the vocabulary
+    gathered whole (``act_sharding.local_rows``)."""
+    def nll(logits, targets):
+        lse = torch.logsumexp(logits, dim=-1)
+        tgt = torch.gather(logits, -1, targets.long()[..., None])[..., 0]
+        return lse - tgt
+
+    return act_sharding.local_rows(nll, (logits, targets))
 
 
 def next_token_xent(logits: torch.Tensor, targets: torch.Tensor,

@@ -17,10 +17,11 @@ from repro_torch.configs import ModelConfig
 from repro_torch.core.policy import get_policy
 from repro_torch.device import resolve_device
 from repro_torch.layers import rwkv6
-from repro_torch.layers.common import (apply_norm, embed_init, norm_init,
-                                       seeded_generator, softcap)
+from repro_torch.layers.common import (apply_norm, embed_init, embed_lookup,
+                                       norm_init, seeded_generator, softcap)
 from repro_torch.layers.mplinear import _dot_f32, linear_init
 from repro_torch.models.lm import remat_wrap, unstack
+from repro_torch.parallel import act_sharding as act
 
 
 def _rwkv_cfg(cfg: ModelConfig) -> rwkv6.RWKVConfig:
@@ -83,14 +84,18 @@ def _run(params, cfg: ModelConfig, x, states: rwkv6.RWKVState,
          single_step: bool):
     policy = get_policy(cfg.precision_policy)
     for i, bp in enumerate(unstack(params["blocks"])):
-        x = _block(bp, cfg, x, rwkv6.RWKVState(*(t[i] for t in states)),
+        x = _block(bp, cfg, act.batch_seq(x), rwkv6.RWKVState(*(t[i] for t in states)),
                    policy, single_step)
     return x
 
 
 def _embed(params, cfg: ModelConfig, tokens):
-    x = params["embed"]["w"][tokens].to(getattr(torch, cfg.compute_dtype))
-    return apply_norm("ln", x, params["ln_in"])
+    x = embed_lookup(params["embed"]["w"], tokens).to(
+        getattr(torch, cfg.compute_dtype))
+    # on a mesh the lookup of a vocabulary-sharded table is a partial sum;
+    # settle it before the LayerNorm (DTensor would carry the partial
+    # through the mean and round otherwise), as lm's _embed pins it
+    return apply_norm("ln", act.batch_seq(x), params["ln_in"])
 
 
 def _head(params, cfg: ModelConfig, x):
@@ -100,7 +105,7 @@ def _head(params, cfg: ModelConfig, x):
     if cfg.padded_vocab != cfg.vocab:
         col = torch.arange(cfg.padded_vocab, device=logits.device)
         logits = logits.masked_fill(col >= cfg.vocab, -1e30)
-    return logits
+    return act.logits(logits)
 
 
 head = _head
@@ -115,7 +120,7 @@ def hidden_states(params, cfg: ModelConfig, tokens):
                           getattr(torch, cfg.compute_dtype))
 
     def layer(bp, h):
-        return _block(bp, cfg, h, st, policy, False, write_state=False)
+        return _block(bp, cfg, act.batch_seq(h), st, policy, False, write_state=False)
 
     step = remat_wrap(layer, "none" if cfg.remat == "none" else "full")
     for bp in unstack(params["blocks"]):

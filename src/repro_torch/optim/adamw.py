@@ -15,6 +15,7 @@ from typing import Any, NamedTuple, Optional
 import torch
 
 from repro_torch.optim.tree import flatten, tree_leaves, tree_map
+from repro_torch.parallel import act_sharding as act
 
 
 @dataclasses.dataclass(frozen=True)
@@ -44,8 +45,8 @@ def adamw_init(params) -> AdamWState:
 
 
 def global_norm(tree) -> torch.Tensor:
-    sq = [torch.sum(torch.square(g.to(torch.float32)))
-          for g in tree_leaves(tree)]
+    sq = [act.local_sum(g, lambda t: torch.sum(torch.square(
+        t.to(torch.float32)))) for g in tree_leaves(tree)]
     return torch.sqrt(sum(sq))
 
 
@@ -54,8 +55,9 @@ def clip_by_global_norm(grads, max_norm: float):
     norm before scaling)."""
     norm = global_norm(grads)
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
-    return tree_map(lambda g: (g.to(torch.float32) * scale).to(g.dtype),
-                    grads), norm
+    return tree_map(lambda g: act.local_pointwise(
+        lambda g, s: (g.to(torch.float32) * s).to(g.dtype), g, scale),
+        grads), norm
 
 
 def _f32(x, device) -> torch.Tensor:
@@ -84,8 +86,7 @@ def adamw_update(cfg: AdamWConfig, params, grads, state: AdamWState,
     flat_p, unflatten = flatten(params)
     flat_g, flat_m, flat_v = (tree_leaves(t) for t in (grads, state.m,
                                                        state.v))
-    new_p, new_m, new_v = [], [], []
-    for p, g, m, v in zip(flat_p, flat_g, flat_m, flat_v):
+    def update(p, g, m, v, b1, b2, c1, c2, bc1, bc2, lr, eps, wd):
         g = g.to(torch.float32)
         m = b1 * m + c1 * g
         v = b2 * v + c2 * torch.square(g)
@@ -93,7 +94,14 @@ def adamw_update(cfg: AdamWConfig, params, grads, state: AdamWState,
         vh = v / bc2
         p32 = p.to(torch.float32)
         p32 = p32 - lr * (mh / (torch.sqrt(vh) + eps) + wd * p32)
-        new_p.append(p32.to(p.dtype))
+        return p32.to(p.dtype), m, v
+
+    new_p, new_m, new_v = [], [], []
+    for p, g, m, v in zip(flat_p, flat_g, flat_m, flat_v):
+        # elementwise: on a mesh each rank updates its own shard
+        p, m, v = act.local_pointwise(update, p, g, m, v, b1, b2, c1, c2,
+                                      bc1, bc2, lr, eps, wd)
+        new_p.append(p)
         new_m.append(m)
         new_v.append(v)
     return (unflatten(new_p),

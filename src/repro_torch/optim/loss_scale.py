@@ -11,6 +11,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.optim.tree import tree_leaves
+from repro_torch.parallel import act_sharding as act
 
 
 class LossScaleState(NamedTuple):
@@ -29,7 +30,9 @@ def grads_finite(grads) -> torch.Tensor:
     """() bool: every element of every leaf is finite."""
     fin = None
     for g in tree_leaves(grads):
-        ok = torch.isfinite(g.to(torch.float32)).all()
+        bad = act.local_sum(g, lambda t: torch.sum(
+            ~torch.isfinite(t.to(torch.float32)), dtype=torch.int32))
+        ok = bad == 0
         fin = ok if fin is None else fin & ok
     return torch.tensor(True) if fin is None else fin
 

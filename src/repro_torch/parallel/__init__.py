@@ -1,0 +1,4 @@
+"""Sharding of the port (mirror of ``repro/parallel``): the placement
+rules of parameters, optimizer state, batches and caches
+(``sharding``) and the activation constraints (``act_sharding``), on
+``torch.distributed`` DTensors."""

@@ -13,9 +13,9 @@ host:
   * ``StragglerMonitor`` — per-step deadline tracking: steps slower than
     ``deadline_factor`` x the rolling median are flagged; the policy
     hook decides (log | skip-and-redispatch | re-mesh).
-
-The reference's ``elastic_reshard`` (re-placing a tree onto another
-device mesh) waits for the port's sharding.
+  * ``elastic_reshard`` — re-place a tree (a restored checkpoint's
+    params and optimizer state) onto another mesh: a run checkpointed on
+    one topology resumes on another.
 """
 from __future__ import annotations
 
@@ -104,17 +104,20 @@ class FaultTolerantLoop:
         self.history: List[Dict] = []
 
     def run(self, state: Any, start_step: int, num_steps: int,
-            device=None) -> Any:
+            shardings: Any = None, device=None) -> Any:
         """Returns ``(state, step)``. Checkpoints restore onto ``device``
         (CUDA unless ``device="cpu"``; without CUDA that default
-        raises)."""
+        raises), or with ``shardings`` (a ``NamedSharding`` tree of the
+        state) onto their meshes at their placements (a sharded run;
+        every rank runs the loop)."""
         from repro_torch.device import resolve_device
-        device = resolve_device(device)
+        if shardings is None:
+            device = resolve_device(device)
         step = start_step
         init_state = state      # step_fn is pure: safe to re-enter from
         # resume if checkpoints exist
         ck_step, ck_state, _ = self.manager.restore_latest(
-            state, missing_ok=True, device=device)
+            state, shardings, missing_ok=True, device=device)
         if ck_step is not None and ck_step >= step:
             state, step = ck_state, ck_step
         end = start_step + num_steps
@@ -139,7 +142,7 @@ class FaultTolerantLoop:
                 if self.restarts > self.cfg.max_restarts:
                     raise
                 ck_step, ck_state, _ = self.manager.restore_latest(
-                    state, missing_ok=True, device=device)
+                    state, shardings, missing_ok=True, device=device)
                 if ck_step is None:
                     # no checkpoint yet: replay from the start — with
                     # the INITIAL state, or the replayed steps would
@@ -148,3 +151,18 @@ class FaultTolerantLoop:
                 else:
                     state, step = ck_state, ck_step
         return state, step
+
+
+def elastic_reshard(tree: Any, mesh, spec_tree: Any) -> Any:
+    """Each tensor of ``tree`` (plain or a DTensor on another mesh) as a
+    DTensor on ``mesh`` at the spec ``spec_tree`` holds at its place
+    (spec tuples as ``parallel.sharding``'s rules give them). Every rank
+    calls it; a DTensor is gathered whole first (a collective)."""
+    from repro_torch.parallel import sharding as shd
+
+    def place(x, spec):
+        if shd.has_dtensor(x):
+            x = x.full_tensor()
+        return shd.place(x, shd.NamedSharding(mesh, spec))
+
+    return shd.zip_map(place, tree, spec_tree)

@@ -89,6 +89,47 @@ def _with_variant(fn: Callable, name: Optional[str]) -> Callable:
     return wrapped
 
 
+def make_serve_fns(api: registry.ModelAPI, mesh, batch_shape: Dict,
+                   cache_len: int, batch_size: int):
+    """``(prefill, decode, cache_shardings, param_shardings)`` for a
+    ``DeviceMesh``: the prefill and decode steps on sharded params and
+    caches (the reference's jitted serve artifacts).
+
+    ``prefill(params, batch, caches)`` places the params by
+    ``param_shardings``, the caches by ``cache_shardings`` and the
+    prefill inputs of ``batch`` (all but ``token``/``pos``) over the data
+    axes, then runs ``api.prefill``; ``decode(params, batch, state)``
+    places the params and runs ``api.decode_step`` on the state prefill
+    returned. Both return DTensors (logits: batch over data, vocab over
+    'model'; ``full_tensor()`` gathers them) and write the caches in
+    place. The shardings come from the shapes alone (an init on the meta
+    device). Every rank calls them."""
+    from repro_torch.parallel import sharding as shd
+    cache_shard = shd.cache_shardings(
+        api.init_cache(batch_size, cache_len, "meta"), mesh)
+    param_shard = shd.param_shardings(api.init(0, "meta"), mesh)
+    pf_shard = {k: shd.NamedSharding(mesh, shd.batch_pspec(
+                    f"[{k!r}]", tuple(v.shape), mesh))
+                for k, v in batch_shape.items() if k not in ("token", "pos")}
+
+    def run(fn, params, batch, state):
+        from torch.distributed.tensor.experimental import (
+            implicit_replication)
+        with torch.no_grad(), implicit_replication():
+            return fn(shd.distribute(params, param_shard), batch, state)
+
+    def prefill(params, batch, caches):
+        batch = {**batch, **shd.distribute(
+            {k: batch[k] for k in pf_shard}, pf_shard)}
+        return run(api.prefill, params, batch,
+                   shd.distribute(caches, cache_shard))
+
+    def decode(params, batch, state):
+        return run(api.decode_step, params, batch, state)
+
+    return prefill, decode, cache_shard, param_shard
+
+
 @dataclasses.dataclass
 class Request:
     rid: int

@@ -1715,3 +1715,70 @@ def test_trainer_cli_on_the_card_resumes_bit_equal(cuda, tmp_path):
     for a, b in zip(tree_leaves(resumed.state), tree_leaves(whole.state)):
         assert a.device.type == "cuda" and torch.equal(a, b)
     assert not torch.are_deterministic_algorithms_enabled()
+
+
+@pytest.mark.cuda
+def test_one_card_mesh_steps_and_serves_as_one_device(cuda, tmp_path):
+    """A one-rank NCCL group and a (1, 1) mesh on the card, reduced
+    qwen2-0.5b: two sharded steps give the plain steps' losses and
+    state bit for bit, every leaf a DTensor; ``make_serve_fns`` under
+    ``fidelity_int8`` gives the plain loop's greedy stream, launching
+    ``qmm`` on local shards once per projection per forward."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import make_single_device_mesh
+    from repro_torch.optim.tree import tree_leaves
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.serving.engine import make_serve_fns
+    cfg = reduced("qwen2-0.5b")
+    api = registry.build(cfg)
+    batches = [{"tokens": torch.from_numpy(np.random.default_rng(i).integers(
+        0, cfg.vocab, (4, 33), dtype=np.int32)).cuda()} for i in range(2)]
+    dist.init_process_group("nccl", init_method="file://" + str(
+        tmp_path / "rendezvous"), rank=0, world_size=1)
+    try:
+        mesh = make_single_device_mesh("cuda")
+        state = train.init_state(api, device="cuda")
+        plain, sharded = state, train.shard_state(state, mesh)
+        for b in batches:
+            plain, m0 = train.make_train_step(api)(plain, b)
+            sharded, m1 = train.make_train_step(api, mesh=mesh)(sharded, b)
+            assert float(m1["loss"]) == float(m0["loss"])
+        assert all(isinstance(t, DTensor) for t in tree_leaves(sharded))
+        for a, b in zip(tree_leaves(shd.undistribute(sharded)),
+                        tree_leaves(plain)):
+            assert torch.equal(a, b)
+
+        icfg = dataclasses.replace(cfg, precision_policy="fidelity_int8")
+        iapi = registry.build(icfg)
+        params = iapi.init(0, "cuda")
+        prompts = torch.from_numpy(np.random.default_rng(7).integers(
+            0, cfg.vocab, (8, 12), dtype=np.int32)).cuda()
+        prefill, decode, _, p_sh = make_serve_fns(
+            iapi, mesh, {"tokens": registry.Spec((8, 12), torch.int32)},
+            32, 8)
+
+        def greedy(pf, dec, p):
+            logits, st = pf(p, {"tokens": prompts},
+                            iapi.init_cache(8, 32, "cuda"))
+            full = getattr(logits, "full_tensor", lambda: logits)()
+            toks = [torch.argmax(full, -1).to(torch.int32)]
+            pos = torch.full((8,), 12, dtype=torch.int32, device="cuda")
+            for _ in range(3):
+                logits, st = dec(p, {"token": toks[-1][:, None],
+                                     "pos": pos}, st)
+                full = getattr(logits, "full_tensor", lambda: logits)()
+                toks.append(torch.argmax(full, -1).to(torch.int32))
+                pos = pos + 1
+            return torch.stack(toks, 1)
+
+        tops.reset_launch_counts()
+        got = greedy(prefill, decode, shd.distribute(params, p_sh))
+        launched = tops.launch_counts()["qmm"]
+        with torch.no_grad():
+            want = greedy(iapi.prefill, iapi.decode_step, params)
+        assert launched == 7 * cfg.n_layers * 4
+        assert torch.equal(got, want)
+    finally:
+        dist.destroy_process_group()

@@ -115,9 +115,10 @@ SERVING_SURFACE_MODULES = (
     "repro_torch.core.area_power", "repro_torch.core.workloads")
 
 
-def _imports_alone(modules):
+def _imports_alone(modules, also: str = ""):
     """Import ``modules`` first in a fresh interpreter: no JAX, no
-    msgpack, nothing of ``repro``, no kernel library, no CUDA context."""
+    msgpack, nothing of ``repro``, no kernel library, no CUDA context
+    (and the checks ``also`` holds, as code)."""
     for mod in modules:
         assert (PKG.parent / (mod.replace(".", "/") + ".py")).exists() or \
             (PKG.parent / mod.replace(".", "/") / "__init__.py").exists()
@@ -131,7 +132,7 @@ def _imports_alone(modules):
         "import repro_torch.kernels._build as b\n"
         "assert not b._LIBS, b._LIBS\n"
         "assert not torch.cuda.is_initialized()\n"
-        "print('ok')\n")
+        + also + "print('ok')\n")
     env = {"PYTHONPATH": str(PKG.parent), "PATH": "/usr/bin:/bin",
            "JAX_PLATFORMS": "cpu"}
     res = subprocess.run([sys.executable, "-c", code], env=env,
@@ -429,6 +430,28 @@ def test_training_modules_stand_alone():
     """The optimizer, the data stream, the losses, the trainer and its
     example, each imported first in a fresh interpreter, as above."""
     _imports_alone(TRAINING_MODULES)
+
+
+SHARDING_MODULES = ("repro_torch.parallel", "repro_torch.parallel.sharding",
+                    "repro_torch.parallel.act_sharding",
+                    "repro_torch.launch.mesh")
+
+
+def test_sharding_modules_stand_alone():
+    """The sharding rules, the activation constraints and the meshes,
+    each imported first in a fresh interpreter, as above; importing them
+    starts no process group."""
+    _imports_alone(SHARDING_MODULES, "import torch.distributed as dist\n"
+                   "assert not dist.is_initialized()\n")
+
+
+def test_meshes_default_to_cuda(no_cuda):
+    """A mesh's device is CUDA unless the caller asks for the CPU."""
+    from repro_torch.launch import mesh
+    for make in (mesh.make_production_mesh, mesh.make_test_mesh,
+                 mesh.make_single_device_mesh):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make()
 
 
 def test_training_entry_points_raise_without_cuda_unless_asked_for_cpu(

@@ -513,12 +513,37 @@ def test_injected_inf_skips_the_update_and_halves_the_scale(ref):
                            state.params["embed"]["w"])
 
 
-def test_make_train_step_takes_no_mesh_or_one_device():
+def test_make_train_step_takes_no_mesh_or_one_device(tmp_path):
+    """``mesh=None`` is the plain step; a one-device ``DeviceMesh`` (a
+    one-rank gloo group here) runs the step on DTensors and gives the
+    plain step's loss and state bit for bit; anything that is not a
+    mesh raises. Meshes of 8 ranks: ``tests/test_torch_multidevice.py``."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_single_device_mesh
+    from repro_torch.parallel.sharding import undistribute
     api = registry.build(reduced(TRAIN_ARCH))
-    make_train_step(api, mesh=None)
-    make_train_step(api, mesh=["cpu"])
-    with pytest.raises(NotImplementedError, match="one device"):
-        make_train_step(api, mesh=["cpu", "cpu"])
+    with pytest.raises(TypeError, match="DeviceMesh"):
+        make_train_step(api, mesh=["cpu"])
+    state = init_state(api, seed=0, device="cpu")
+    batch = {"tokens": torch.from_numpy(train_tokens(512, 2, TRAIN_SEQ, 0))}
+    dist.init_process_group("gloo", init_method="file://" + str(
+        tmp_path / "rendezvous"), rank=0, world_size=1)
+    try:
+        mesh = make_single_device_mesh("cpu")
+        # every remat setting, "dots" a selective-checkpoint dispatch mode
+        for remat in ("none", "full", "dots"):
+            rapi = registry.build(dataclasses.replace(reduced(TRAIN_ARCH),
+                                                      remat=remat))
+            plain, m0 = make_train_step(rapi, mesh=None)(state, batch)
+            sharded, m1 = make_train_step(rapi, mesh=mesh)(state, batch)
+            assert all(type(t).__name__ == "DTensor"
+                       for t in tree_leaves(sharded))
+            sharded = undistribute(sharded)
+            assert float(m1["loss"]) == float(m0["loss"]), remat
+            for a, b in zip(tree_leaves(sharded), tree_leaves(plain)):
+                assert torch.equal(a, b), remat
+    finally:
+        dist.destroy_process_group()
     with pytest.raises(ValueError, match="microbatches"):
         train.grad_step(api, TrainConfig(microbatches=3),
                         init_state(api, seed=0, device="cpu"),
@@ -654,4 +679,5 @@ def test_launch_serve_reexports_the_serving_names():
     for name in ("EngineConfig", "SamplingParams", "Request",
                  "ServingEngine"):
         assert getattr(serve, name) is getattr(serving, name)
-    assert not hasattr(serve, "make_serve_fns")
+    from repro_torch.serving import engine
+    assert serve.make_serve_fns is engine.make_serve_fns
