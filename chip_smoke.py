@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--report PATH] [--profile]
 
-Drives the port (``src/repro_torch``) on the card, in eighteen phases,
+Drives the port (``src/repro_torch``) on the card, in twenty phases,
 each printing one line that starts with ``phase``:
 
 1. device and build: the card's name and power limit (nvidia-smi), and
@@ -261,6 +261,32 @@ each printing one line that starts with ``phase``:
    killed at step 3 and resumed by a new loop: losses and state
    bit-equal to the uninterrupted run's. Its launches join the kernel
    table.
+20. the block-FP pod exchange and the dry-run, which launch none of
+   the five kernels (asserted). The gradients of one plain full-width
+   qwen2-0.5b step (``bf16``, phase 18's state at step 0 and its first
+   batch of 8 x 128): (a) ``blockfp_quantize``/``blockfp_dequantize``
+   at w = 8 and 4 on the card bit-equal to the CPU's for every leaf,
+   and the whole tree's ms against its byte bound; (b) on a one-rank
+   NCCL group and a (1, 1, 1) ("pod", "data", "model") mesh,
+   ``make_pod_exchange`` with f32, int8 and blockfp8, outputs bit-equal
+   to the same functions on the CPU (a one-rank gloo group), the
+   recorder seeing the all-gathers (0 wire bytes at group size 1), ms
+   per exchange; (c) ``TrainConfig(compression="blockfp8")`` refused
+   on that mesh and, on a (1, 1) mesh, the ``"none"`` step's loss and
+   state bit for bit; (d) on a fake process group of one rank, the
+   dry-run's per-device estimate of the same 8 x 128 step against one
+   real plain step: its Parameter and Optstate bytes equal to the
+   state's on the card, and the estimate within ``DRYRUN_MEMORY_RATIO``
+   of the step's ``max_memory_allocated`` above what was resident
+   before it plus the state and batch bytes (earlier phases' leftovers
+   drop out), its activations and temporaries within the same window
+   of that increment; and the production cell (qwen2-0.5b
+   ``train_4k`` on a fake 256-rank (16, 16) mesh) through ``python -m
+   repro_torch.launch.dryrun`` in a process of its own to ``status:
+   "ok"``, its seconds. The timed parts of (a) and (b) run first,
+   alone; the cell then traces in a process of its own beside (c),
+   (d) and the CPU's side of (a) and (b), which time nothing and get
+   all but one of the host's cores.
 
 Phases 8-13 assert that f32 matmuls do not run on TF32 (a TF32
 router moves expert selection); each phase frees its model before the
@@ -4878,6 +4904,361 @@ def phase_mesh(smi):
     return launches
 
 
+# ------------------------------------ phase 20: exchange and dry-run
+
+CODEC_WIDTHS = (8, 4)
+EXCHANGE_METHODS = ("f32", "int8", "blockfp8")
+# the dry-run's per-device estimate against the measured step peak
+DRYRUN_MEMORY_RATIO = (0.67, 1.5)
+# (d): the production cell traced on a fake world of 256
+DRYRUN_CELL = ("qwen2-0.5b", "train_4k")
+
+
+def _exchange_state():
+    """Full-width qwen2-0.5b under ``bf16``, phase 18's state at step 0
+    (seed 0) and its first batch of 8 x 128 tokens, on the card."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticLMDataset
+    from repro_torch.launch import train
+    from repro_torch.models import registry
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH),
+                              precision_policy="bf16")
+    api = registry.build(cfg)
+    ds = SyntheticLMDataset(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                                       global_batch=TRAIN_BATCH),
+                            device="cuda")
+    return cfg, api, train.init_state(api, device="cuda"), ds.batch(0)
+
+
+def _paths(tree):
+    """{keystr path: leaf} of a tree."""
+    from repro_torch.parallel import sharding as shd
+    out = {}
+    shd.tree_map_with_path(lambda p, x: out.__setitem__(p, x), tree)
+    return out
+
+
+def _codec(leaves, w):
+    """{path: (mant, exp, dequantized)} of every leaf at width ``w``, on
+    the leaves' device."""
+    from repro_torch.parallel import blockfp
+    res = {}
+    for k, g in leaves.items():
+        m, e, n = blockfp.blockfp_quantize(g, w)
+        res[k] = (m, e, blockfp.blockfp_dequantize(
+            m.to(torch.int32), e, n, w, g.shape))
+    return res
+
+
+def _codec_on_card(grads):
+    """(a), on the card: ``blockfp_quantize``/``blockfp_dequantize`` of
+    every gradient leaf at each width, the results copied to the host,
+    and the milliseconds of the whole tree against its byte bound."""
+    leaves = _paths(grads)
+    n_values = sum(g.numel() for g in leaves.values())
+    out, results = {"leaves": len(leaves), "values": n_values}, {}
+    for w in CODEC_WIDTHS:
+        results[w] = {k: tuple(t.cpu() for t in v)
+                      for k, v in _codec(leaves, w).items()}
+        ms = median_ms(lambda: _codec(leaves, w), reps=5, warm=1)
+        # quantize reads 4 B a value and writes 1 (and 1 exponent byte a
+        # block); dequantize reads those and writes 4
+        n_bytes = n_values * (4 + 1 + 1 + 4) + 2 * n_values / 256
+        out[f"w{w}"] = {"ms": ms, "bytes": n_bytes,
+                        "bound_ms": n_bytes / REPORT["rates"]["bytes_per_s"]
+                        * 1e3}
+    return out, results
+
+
+def _codec_vs_cpu(grads_cpu, results, out):
+    """(a), on the CPU: the card's results bit-equal to the CPU's."""
+    leaves = _paths(grads_cpu)
+    for w in CODEC_WIDTHS:
+        cpu = _codec(leaves, w)
+        bad = [k for k in leaves
+               if not all(torch.equal(a, b)
+                          for a, b in zip(results[w][k], cpu[k]))]
+        if bad:
+            raise AssertionError(f"blockfp w={w}: card and CPU differ on "
+                                 f"{bad[:5]}")
+        out[f"w{w}"]["bit_equal"] = True
+
+
+def _exchange_on_card(grads):
+    """(b), on the card: ``make_pod_exchange`` on a (1, 1, 1) ("pod",
+    "data", "model") mesh over the one-rank NCCL group, each method over
+    the gradients stacked on a pod axis of 1: every output's shape and
+    placements, the recorder seeing the all-gathers (0 wire bytes at
+    group size 1), ms per exchange; the outputs' local tensors copied
+    to the host."""
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.roofline import CollectiveRecorder
+    from repro_torch.optim.tree import tree_map
+    from repro_torch.parallel import blockfp
+    from repro_torch.parallel import sharding as shd
+    mesh = make_mesh((1, 1, 1), ("pod", "data", "model"), "cuda")
+    stacked = tree_map(lambda g: g[None], grads)
+    out, results = {}, {}
+    for method in EXCHANGE_METHODS:
+        fn, in_sh, out_sh = blockfp.make_pod_exchange(mesh, stacked, method)
+        placed = shd.distribute(stacked, in_sh)
+        with CollectiveRecorder() as rec:
+            got = fn(placed)
+        torch.cuda.synchronize()
+        want, want_sh, got_p = _paths(stacked), _paths(out_sh), _paths(got)
+        bad = [(k, tuple(x.shape), x.placements) for k, x in got_p.items()
+               if tuple(x.shape) != tuple(want[k].shape)
+               or tuple(x.placements) != want_sh[k].placements]
+        if bad:
+            raise AssertionError(f"exchange {method}: outputs at {bad[:5]}")
+        if "all-gather" not in rec.stats.by_op or \
+                rec.stats.total_bytes != 0.0:
+            raise AssertionError(f"exchange {method}: recorded "
+                                 f"{rec.stats.by_op} at group size 1")
+        results[method] = {k: x.to_local().cpu() for k, x in got_p.items()}
+        del got
+        ms = median_ms(lambda: fn(placed), reps=5, warm=1)
+        out[method] = {"ms": ms, "recorded": dict(rec.stats.by_op),
+                       "collectives": rec.stats.count}
+        del placed
+    return out, results
+
+
+def _exchange_vs_cpu(grads_cpu, results, out):
+    """(b), on the CPU: the card's outputs bit-equal to the same
+    functions over the one-rank gloo group that is the default group."""
+    from repro_torch.parallel import blockfp
+    cpu_fn = {"f32": lambda g: blockfp._all_gather(g, None).sum(0),
+              "int8": lambda g: blockfp.int8_psum(g, None),
+              "blockfp8": lambda g: blockfp.compressed_psum(g, None, 8)}
+    for method in EXCHANGE_METHODS:
+        bad = [k for k, g in _paths(grads_cpu).items()
+               if not torch.equal(results[method][k], cpu_fn[method](
+                   g[None].to(torch.float32)))]
+        if bad:
+            raise AssertionError(f"exchange {method}: card and CPU differ "
+                                 f"on {bad[:5]}")
+        out[method]["bit_equal"] = True
+
+
+def _compression_on_meshes(api, state, batch):
+    """(c) ``TrainConfig(compression="blockfp8")`` refuses a (1, 1, 1)
+    pod mesh and, on a (1, 1) mesh, gives the ``"none"`` step's loss and
+    state bit for bit."""
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.optim.tree import tree_leaves
+    from repro_torch.parallel import sharding as shd
+    tc = train.TrainConfig(adamw=train.AdamWConfig(lr=TRAIN_LR),
+                           total_steps=TRAIN_STEPS, compression="blockfp8")
+    pod = make_mesh((1, 1, 1), ("pod", "data", "model"), "cuda")
+    try:
+        train.make_train_step(api, tc, pod)
+    except NotImplementedError as e:
+        refused = str(e)
+    else:
+        raise AssertionError("compression on a pod mesh did not raise")
+    mesh = make_mesh((1, 1), ("data", "model"), "cuda")
+    runs = {}
+    for name, cfg_tc in (("blockfp8", tc), ("none", dataclasses.replace(
+            tc, compression="none"))):
+        new, m = train.make_train_step(api, cfg_tc, mesh)(
+            train.shard_state(state, mesh), batch)
+        runs[name] = (float(m["loss"]), [t.detach() for t in tree_leaves(
+            shd.undistribute((new.params, new.opt)))])
+        del new, m
+    same = runs["blockfp8"][0] == runs["none"][0] and all(
+        torch.equal(a, b) for a, b in zip(runs["blockfp8"][1],
+                                          runs["none"][1]))
+    if not same:
+        raise AssertionError(f"compression on a (1, 1) mesh changed the "
+                             f"step: {runs['blockfp8'][0]} vs "
+                             f"{runs['none'][0]}")
+    loss = runs["none"][0]
+    del runs
+    return {"refused_on_pod_mesh": refused, "loss": loss,
+            "bit_equal_to_none": True}
+
+
+def _nbytes(tensors):
+    """Bytes of the storages under ``tensors``, each counted once."""
+    storages = {t.untyped_storage().data_ptr(): t.untyped_storage().nbytes()
+                for t in tensors}
+    return sum(storages.values())
+
+
+def _dryrun_vs_card(cfg, api, state, batch):
+    """(d) the dry-run's per-device estimate of the 8 x 128 step (a fake
+    world of 1, a (1, 1) mesh) against one real plain step: its
+    Parameter and Optstate bytes equal to the state's on the card; the
+    whole estimate against the step's measured peak above what was
+    resident before it (``max_memory_allocated`` with the peak reset;
+    earlier phases' leftovers drop out), plus the state and batch bytes;
+    and the rest of the estimate (activations and temporaries) against
+    that measured increment."""
+    from repro_torch.configs import InputShape
+    from repro_torch.launch import dryrun, train
+    from repro_torch.optim.tree import tree_leaves
+    rec = dryrun.run_cell(cfg.arch_id, "phase20", False, cfg=cfg,
+                          shape=InputShape("phase20", TRAIN_SEQ, TRAIN_BATCH,
+                                           "train"), mesh_shape=(1, 1))
+    if rec["status"] != "ok":
+        raise AssertionError(f"the dry-run failed: {rec}")
+    held = {"Parameter": _nbytes(tree_leaves(state.params)),
+            "Optstate": _nbytes(tree_leaves(
+                (state.opt, state.loss_scale, state.step))),
+            "Other": _nbytes(tree_leaves(batch))}
+    est_mem = rec["memory"]
+    if any(est_mem[k] != held[k] for k in ("Parameter", "Optstate")):
+        raise AssertionError(f"the dry-run's state bytes {est_mem} against "
+                             f"the state's on the card {held}")
+    step = train.make_train_step(api, train.TrainConfig(
+        adamw=train.AdamWConfig(lr=TRAIN_LR), total_steps=TRAIN_STEPS))
+    _free()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    new, m = step(state, batch)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    del new, m
+    est = rec["per_device_bytes"]
+    held_bytes = sum(held.values())
+    measured = peak - resident + held_bytes
+    ratio = est / measured
+    step_ratio = (est - held_bytes) / (peak - resident)
+    lo, hi = DRYRUN_MEMORY_RATIO
+    if not (lo <= ratio <= hi and lo <= step_ratio <= hi):
+        raise AssertionError(f"dry-run estimate {est} against the measured "
+                             f"{measured}: ratio {ratio}; above the state "
+                             f"{step_ratio}")
+    return {"estimate_bytes": est, "memory": est_mem, "state_bytes": held,
+            "measured_bytes": measured, "measured_peak_bytes": peak,
+            "resident_before_bytes": resident, "ratio": ratio,
+            "step_ratio": step_ratio, "bounds": DRYRUN_MEMORY_RATIO,
+            "flops": rec["cost"]["flops"],
+            "collectives": rec["collectives"]}
+
+
+def _start_production_cell(tmp):
+    """The production cell's dry-run CLI in a process of its own (a fake
+    world of 256 is process-wide)."""
+    arch, shape = DRYRUN_CELL
+    env = dict(os.environ)
+    src = os.path.join(HERE, "src")
+    env["PYTHONPATH"] = os.pathsep.join(
+        p for p in (src, env.get("PYTHONPATH")) if p)
+    out = os.path.join(tmp, "dryrun")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+         "--shape", shape, "--mesh", "single", "--out", out],
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    return proc, out, time.perf_counter()
+
+
+def _finish_production_cell(proc, out, t0):
+    text, _ = proc.communicate(timeout=600)
+    wall = time.perf_counter() - t0
+    arch, shape = DRYRUN_CELL
+    path = os.path.join(out, f"{arch}__{shape}__single.json")
+    if proc.returncode != 0 or not os.path.exists(path):
+        raise AssertionError(f"the dry-run CLI failed ({proc.returncode}): "
+                             f"{text[-2000:]}")
+    with open(path) as f:
+        rec = json.load(f)
+    if rec["status"] != "ok":
+        raise AssertionError(f"the production cell did not trace: "
+                             f"{rec.get('traceback', rec)}")
+    return {"cell": f"{arch} {shape} {rec['mesh']}", "since_start_s": wall,
+            "trace_s": rec["compile_s"], "chips": rec["chips"],
+            "per_device_bytes": rec["per_device_bytes"],
+            "fits_card": rec["fits_card"], "card_bytes": rec["card_bytes"],
+            "roofline": rec["roofline"], "collectives": rec["collectives"]}
+
+
+@contextlib.contextmanager
+def _production_cell(tmp):
+    """Starts the production cell on entry and yields the call that waits
+    for it and reads its record; while it runs, this process's torch
+    keeps to all but one of the host's cores, and the cell's process is
+    killed on the way out if it still runs."""
+    proc, out, t0 = _start_production_cell(tmp)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(max(1, (os.cpu_count() or 2) - 1))
+    try:
+        yield lambda: _finish_production_cell(proc, out, t0)
+    finally:
+        torch.set_num_threads(threads)
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+def phase_exchange(smi):
+    """The block-FP exchange and the dry-run (see the module docstring,
+    phase 20). The timed parts of (a) and (b) run first, alone; the
+    production cell then traces beside the rest, which times nothing."""
+    import torch.distributed as dist
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+    from repro_torch.launch.dryrun import fake_world
+    from repro_torch.optim.tree import tree_map
+    t_phase = time.perf_counter()
+    _no_tf32()
+    ops.reset_launch_counts()
+    parts = {}
+    with tempfile.TemporaryDirectory() as tmp, \
+            contextlib.ExitStack() as stack:
+        cfg, api, state, batch = _exchange_state()
+        with train.train_numerics():
+            grads, _, _ = train.grad_step(api, train.TrainConfig(),
+                                          state, batch)
+        grads_cpu = tree_map(lambda g: g.cpu(), grads)
+        dist.init_process_group(
+            "nccl", init_method="file://" + os.path.join(tmp, "rdv"),
+            rank=0, world_size=1)
+        try:
+            torch.cuda.set_device(0)
+            t0 = time.perf_counter()
+            codec, codec_card = _codec_on_card(grads)
+            parts["codec_s"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            exchange, exchange_card = _exchange_on_card(grads)
+            parts["exchange_s"] = time.perf_counter() - t0
+            del grads
+            _free()
+            finish_cell = stack.enter_context(_production_cell(tmp))
+            t_beside = time.perf_counter()
+            compression = _compression_on_meshes(api, state, batch)
+        finally:
+            dist.destroy_process_group()
+        _free()
+        with fake_world(1):
+            memory = _dryrun_vs_card(cfg, api, state, batch)
+        del state, batch
+        _free()
+        dist.init_process_group(
+            "gloo", init_method="file://" + os.path.join(tmp, "gloo"),
+            rank=0, world_size=1)
+        try:
+            _codec_vs_cpu(grads_cpu, codec_card, codec)
+            _exchange_vs_cpu(grads_cpu, exchange_card, exchange)
+        finally:
+            dist.destroy_process_group()
+        parts["beside_cell_s"] = time.perf_counter() - t_beside
+        t0 = time.perf_counter()
+        production = finish_cell()
+        parts["cell_wait_s"] = time.perf_counter() - t0
+    _no_tf32()
+    launches = {k: v for k, v in ops.launch_counts().items() if v}
+    if launches:
+        raise AssertionError(f"phase 20 launched {launches}")
+    log(20, card=smi, codec=codec, exchange=exchange,
+        compression=compression, dryrun_vs_card=memory,
+        production_cell=dict(production, beside="phase 20's (c), (d) "
+                             "and CPU checks"),
+        parts_s=parts, phase_s=time.perf_counter() - t_phase)
+
+
 # ---------------------------------------------------------------- main
 
 KERNELS = {
@@ -4948,6 +5329,7 @@ def main():
     launches17 = phase_fabric(smi, get_config("qwen2-0.5b"))
     phase_train(smi)
     launches19 = phase_mesh(smi)
+    phase_exchange(smi)
 
     main_launches = {
         "fused_dequant_mm": launches3["fused_dequant_mm"]

@@ -74,6 +74,13 @@ class ModelConfig:
         columns are masked in the head)."""
         return -(-self.vocab // 64) * 64
 
+    @property
+    def sub_quadratic(self) -> bool:
+        """Bounded state/window per token -> long_500k-capable."""
+        if self.family in ("rwkv", "griffin"):
+            return True
+        return self.attn_pattern == "swa" and self.window is not None
+
     def params_count(self) -> int:
         """Approximate parameter count (embeddings included once)."""
         d, hd = self.d_model, self.head_dim_
@@ -89,12 +96,39 @@ class ModelConfig:
         return layers + emb
 
 
+    def active_params_count(self) -> int:
+        if not self.moe:
+            return self.params_count()
+        d = self.d_model
+        hd = self.head_dim_
+        attn = d * hd * (self.n_heads + 2 * self.n_kv_heads) \
+            + self.n_heads * hd * d
+        ffn = 3 * d * self.moe.d_expert * self.moe.top_k
+        return self.n_layers * (attn + ffn) + self.vocab * d
+
+
 @dataclasses.dataclass(frozen=True)
 class InputShape:
     name: str
     seq_len: int
     global_batch: int
     kind: str
+
+
+# the production cells' input shapes (the reference's ``SHAPES``)
+SHAPES = {
+    "train_4k": InputShape("train_4k", 4096, 256, "train"),
+    "prefill_32k": InputShape("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": InputShape("decode_32k", 32768, 128, "decode"),
+    "long_500k": InputShape("long_500k", 524288, 1, "decode"),
+}
+
+
+def shape_applicable(cfg: ModelConfig, shape: InputShape) -> bool:
+    """long_500k needs sub-quadratic attention (assignment rule)."""
+    if shape.name == "long_500k":
+        return cfg.sub_quadratic
+    return True
 
 
 def qwen2_0_5b() -> ModelConfig:

@@ -79,6 +79,10 @@ class TrainConfig:
     # gradient accumulation: the batch splits into this many microbatches
     # whose gradients average exactly
     microbatches: int = 1
+    # cross-pod gradient compression: "none", or a method of
+    # ``parallel.blockfp.make_pod_exchange``, whose program is the
+    # exchange; the step refuses it on a mesh with a 'pod' axis
+    compression: str = "none"
 
 
 def init_state(api: registry.ModelAPI, params=None, seed: int = 0,
@@ -219,6 +223,12 @@ def make_train_step(api: registry.ModelAPI, tc: TrainConfig = TrainConfig(),
     if mesh is not None and not hasattr(mesh, "mesh_dim_names"):
         raise TypeError(f"mesh must be a torch.distributed DeviceMesh or "
                         f"None, not {type(mesh).__name__}")
+    if tc.compression != "none" and mesh is not None and \
+            "pod" in mesh.mesh_dim_names:
+        raise NotImplementedError(
+            "compressed cross-pod gradient sync is the hierarchical-DP "
+            "exchange program: see parallel.blockfp.make_pod_exchange "
+            "(benchmarked in tools/exchange_bench.py / §Perf)")
 
     def step(state: TrainState, batch):
         with train_numerics():

@@ -218,12 +218,10 @@ def _write_slots(buf, rows, slots, val, keep=None):
             buf[rows, slots] = torch.where(keep, val.to(buf.dtype),
                                            buf[rows, slots])
         return
-    from torch.distributed.tensor._utils import (
-        compute_local_shape_and_global_offset)
     full = lambda t: t.full_tensor() if act.is_dtensor(t) else t  # noqa
     local = buf.to_local()
-    _, off = compute_local_shape_and_global_offset(
-        buf.shape, buf.device_mesh, buf.placements)
+    _, off = act.local_shape_and_offset(buf.shape, buf.device_mesh,
+                                        buf.placements)
     rows, slots = torch.broadcast_tensors(full(rows), full(slots))
     val = full(val).to(buf.dtype).expand(*rows.shape, *buf.shape[2:])
     lr, ls = rows - off[0], slots - off[1]
@@ -231,7 +229,26 @@ def _write_slots(buf, rows, slots, val, keep=None):
            & (ls < local.shape[1]))
     if keep is not None:
         sel = sel & full(keep).expand(rows.shape)
-    local[lr[sel], ls[sel]] = val[sel]
+    if local.shape[0] == 0 or local.shape[1] == 0:
+        return
+    # Every entry writes, so the write's shape does not depend on the
+    # data (a fake tensor can trace it): an entry outside this shard
+    # repeats the first selected entry's write (index and value), or,
+    # if none is selected, writes entry (0, 0)'s own value back. Writes
+    # that meet at one index carry one value, so their order is moot.
+    sel, lr, ls = sel.reshape(-1), lr.reshape(-1), ls.reshape(-1)
+    val = val.reshape(sel.shape[0], *buf.shape[2:])
+    first = torch.argmax(sel.to(torch.int32)).reshape(1)
+    at = lambda t: t.index_select(0, first)[0]  # noqa: E731 (no host read)
+    none = ~at(sel)
+    tail = (1,) * (val.dim() - 1)
+    fr = torch.where(none, 0, at(lr))
+    fs = torch.where(none, 0, at(ls))
+    fv = torch.where(none.reshape(tail), local[0, 0], at(val))
+    lr = torch.where(sel, lr, fr)
+    ls = torch.where(sel, ls, fs)
+    val = torch.where(sel.reshape(-1, *tail), val, fv)
+    local.index_put_((lr, ls), val)
 
 
 def forward(params, cfg: AttnConfig, x, positions, policy, path,

@@ -154,13 +154,24 @@ def local_at(x, placements, grad_placements=None) -> torch.Tensor:
     return x.to_local(grad_placements=grad_placements)
 
 
+def local_shape_and_offset(shape, mesh, placements):
+    """This rank's block of a ``shape`` tensor at ``placements``: its
+    local shape and global offset, as DTensor cuts it. torch computes
+    the offsets with tensors, which a ``FakeTensorMode`` (the dry-run's)
+    would turn into values it cannot read, so they are computed outside
+    any such mode."""
+    from torch._subclasses.fake_tensor import unset_fake_temporarily
+    from torch.distributed.tensor._utils import (
+        compute_local_shape_and_global_offset)
+    with unset_fake_temporarily():
+        return compute_local_shape_and_global_offset(shape, mesh,
+                                                     placements)
+
+
 def plain_block(x: torch.Tensor, mesh, placements) -> torch.Tensor:
     """A plain tensor, the same on every rank, cut to this rank's block
     at ``placements`` as DTensor cuts it (no collective, no DTensor)."""
-    from torch.distributed.tensor._utils import (
-        compute_local_shape_and_global_offset)
-    shape, off = compute_local_shape_and_global_offset(
-        x.shape, mesh, placements)
+    shape, off = local_shape_and_offset(x.shape, mesh, placements)
     for d, (n, o) in enumerate(zip(shape, off)):
         if n != x.shape[d]:
             x = x.narrow(d, o, n)

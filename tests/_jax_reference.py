@@ -942,11 +942,130 @@ def task_train_families():
     return out
 
 
+def exchange_grads():
+    """``tests/test_blockfp.py``'s pod-exchange gradients (numpy seed 0):
+    leaves (2, 64, 64) and (2, 512, 64), pods stacked first."""
+    rng = np.random.default_rng(0)
+    return {"wq": {"w": rng.normal(0, 1e-3, (2, 64, 64)).astype(np.float32)},
+            "embed": {"w": rng.normal(0, 1e-3, (2, 512, 64))
+                      .astype(np.float32)}}
+
+
+def exchange_spec(path, shape, mesh):
+    """A ``fsdp_spec_fn`` for ``make_pod_exchange`` other than
+    ``param_pspec``: the embedding's columns, every other leaf's rows,
+    over ('data', 'model')."""
+    if "embed" in path:
+        return (None, ("data", "model"))
+    return (("data", "model"), None)
+
+
+def task_blockfp():
+    """``make_pod_exchange`` on a (2, 2, 2) ("pod", "data", "model") mesh
+    of 8 host devices (the caller's ``XLA_FLAGS`` force 8 before JAX
+    starts) over ``exchange_grads()``, per method, with the default
+    specs (key ``method``) and with ``exchange_spec`` as its
+    ``fsdp_spec_fn`` (``fsdp/method``): each leaf's output (values,
+    global shape, out spec) and ``parse_collectives`` of the compiled
+    program by op. ``compress/int8`` and ``compress/blockfp8``:
+    ``compress_grads`` over "pod" in a ``shard_map`` with the default
+    exchange's specs, and ``compress_refuses``, its error for "f32".
+    For blockfp8 also the oracle of its exact arithmetic: per block of
+    each device's shard, the reference's ``blockfp_quantize`` mantissas
+    aligned and summed over the pods, then ``np.ldexp(total, gmax -
+    6)``."""
+    import jax
+    import jax.numpy as jnp
+
+    from repro.launch.roofline import parse_collectives
+    from repro.parallel.blockfp import (blockfp_quantize, compress_grads,
+                                        make_pod_exchange)
+
+    assert jax.device_count() == 8, jax.devices()
+    mesh = jax.make_mesh((2, 2, 2), ("pod", "data", "model"))
+    grads = {k: {"w": jnp.asarray(v["w"])} for k, v in
+             exchange_grads().items()}
+    shapes = jax.tree.map(lambda x: jax.ShapeDtypeStruct(x.shape, x.dtype),
+                          grads)
+
+    def record(fn, placed, out_sh, method, div):
+        with mesh:
+            res = fn(placed)
+            txt = fn.lower(shapes).compile().as_text()
+        coll = parse_collectives(txt, 8)
+        leaves = {}
+        for name in grads:
+            leaf, sh = res[name]["w"], out_sh[name]["w"]
+            leaves[name] = {
+                "values": np.asarray(leaf), "shape": tuple(leaf.shape),
+                "spec": tuple(sh.spec) + (None,) * (leaf.ndim
+                                                     - len(sh.spec))}
+            if method == "blockfp8":
+                leaves[name]["ldexp"] = _blockfp8_oracle(
+                    placed[name]["w"], blockfp_quantize, div)
+        return {"leaves": leaves, "by_op": dict(coll.by_op),
+                "total_bytes": coll.total_bytes}
+
+    out = {}
+    for method in ("f32", "int8", "blockfp8"):
+        for key, spec_fn in ((method, None),
+                             (f"fsdp/{method}", exchange_spec)):
+            fn, in_sh, out_sh = make_pod_exchange(mesh, shapes, method,
+                                                  spec_fn)
+            placed = jax.device_put(grads, in_sh)
+            out[key] = record(fn, placed, out_sh, method, 2)
+    for method in ("int8", "blockfp8"):
+        _, in_sh, out_sh = make_pod_exchange(mesh, shapes, method)
+        body = jax.shard_map(
+            lambda t, m=method: compress_grads(t, "pod", m), mesh=mesh,
+            in_specs=(jax.tree.map(lambda s: s.spec, in_sh),),
+            out_specs=jax.tree.map(lambda s: s.spec, out_sh),
+            axis_names=set(mesh.axis_names), check_vma=False)
+        fn = jax.jit(body, in_shardings=(in_sh,), out_shardings=out_sh)
+        placed = jax.device_put(grads, in_sh)
+        out[f"compress/{method}"] = record(fn, placed, out_sh, method, 1)
+    try:
+        compress_grads(grads, "pod", "f32")
+    except ValueError as e:
+        out["compress_refuses"] = repr(e)
+    return out
+
+
+def _blockfp8_oracle(placed, quantize, div):
+    """(1, ...) f32: each device's shard divided by ``div`` (the pod
+    count in the exchange, 1 in ``compress_grads``), quantized by the
+    reference at w = 8, its mantissas aligned to the pods' block maximum
+    and summed, scaled by ``np.ldexp``."""
+    groups = {}
+    for shard in placed.addressable_shards:
+        key = tuple((s.start, s.stop) for s in shard.index[1:])
+        if key in groups and shard.index[0].start in groups[key]:
+            continue
+        mant, exp, n = quantize(np.asarray(shard.data) / div, 8)
+        groups.setdefault(key, {})[shard.index[0].start] = (
+            np.asarray(mant, np.int32), np.asarray(exp, np.int32), n,
+            np.asarray(shard.data).shape[1:])
+    full = np.zeros((1,) + placed.shape[1:], np.float32)
+    for key, pods in groups.items():
+        parts = list(pods.values())
+        gmax = np.max([e for _, e, _, _ in parts], axis=0)
+        total = sum((m >> np.minimum(gmax - e, 31)[:, None])
+                    .astype(np.int8).astype(np.int32)
+                    for m, e, _, _ in parts)
+        n, shape = parts[0][2], parts[0][3]
+        vals = np.ldexp(total.astype(np.float32),
+                        (gmax - 6)[:, None]).astype(np.float32)
+        idx = (slice(0, 1),) + tuple(slice(a, b) for a, b in key)
+        full[idx] = vals.reshape(-1)[:n].reshape((1,) + shape)
+    return full
+
+
 TASKS = {"lm": task_lm, "serving": task_serving, "plan": task_plan,
          "checkpoint": task_checkpoint, "router": task_router,
          "arch": task_arch, "rebuild": task_rebuild,
          "family": task_family, "encdec": task_encdec,
-         "train": task_train, "train_families": task_train_families}
+         "train": task_train, "train_families": task_train_families,
+         "blockfp": task_blockfp}
 
 
 if __name__ == "__main__":

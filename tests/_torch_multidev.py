@@ -3,7 +3,8 @@ driving the port's sharded train step, ``make_serve_fns``, checkpoint
 restore across topologies and the trainer CLI, each case held to the
 port's own run on plain tensors on one device (which
 ``tests/test_torch_train.py`` and the serving tests hold to the JAX
-reference).
+reference), and the block-FP pod exchange (``make_pod_exchange``),
+whose outputs the test holds to the JAX reference's.
 
 ``run_all(out_path)`` spawns the ranks once; every rank runs every case
 in the same order (a collective that one rank skips would hang the
@@ -307,6 +308,88 @@ def case_cli(rank, tmp):
     return out
 
 
+EXCHANGE_METHODS = ("f32", "int8", "blockfp8")
+COMPRESS_METHODS = ("int8", "blockfp8")
+
+
+def _exchange_result(rank, out, out_sh, by_op, total_bytes):
+    """Each output leaf's global shape, spec, placements and local
+    shape, the collectives rank 0 issued, and (rank 0) the gathered
+    outputs."""
+    from repro_torch.parallel import sharding as shd
+    leaves = {}
+    for name in out:
+        x, sh = out[name]["w"], out_sh[name]["w"]
+        leaves[name] = {"shape": tuple(x.shape), "spec": sh.spec,
+                        "placements": tuple(x.placements),
+                        "want_placements": sh.placements,
+                        "local_shape": tuple(x.to_local().shape),
+                        "dtype": str(x.dtype)}
+    full = shd.undistribute(out)
+    if rank == 0:
+        for name in out:
+            leaves[name]["values"] = full[name]["w"].numpy()
+    return {"leaves": leaves, "by_op": by_op, "total_bytes": total_bytes}
+
+
+def _exchange_grads():
+    from _jax_reference import exchange_grads
+    return {k: {"w": torch.from_numpy(v["w"])}
+            for k, v in exchange_grads().items()}
+
+
+def case_exchange(rank, method, spec_fn):
+    """``make_pod_exchange`` on (2, 2, 2) over ``tests/test_blockfp.py``'s
+    gradients (the same numpy arrays on every rank), with
+    ``fsdp_spec_fn=spec_fn``."""
+    from repro_torch.launch.roofline import CollectiveRecorder
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.parallel.blockfp import make_pod_exchange
+    mesh = _mesh("multi")
+    grads = _exchange_grads()
+    fn, in_sh, out_sh = make_pod_exchange(mesh, grads, method, spec_fn)
+    placed = shd.distribute(grads, in_sh)
+    with CollectiveRecorder() as rec:
+        out = fn(placed)
+    return _exchange_result(rank, out, out_sh, dict(rec.stats.by_op),
+                            rec.stats.total_bytes)
+
+
+def case_compress(rank, method):
+    """``compress_grads`` over the mesh's 'pod' group on the local shards
+    of the default exchange's input placements, re-wrapped at its output
+    placements; and its refusal of "f32"."""
+    from torch.distributed.tensor import DTensor
+    from repro_torch.launch.roofline import CollectiveRecorder
+    from repro_torch.optim.tree import tree_map
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.parallel.blockfp import compress_grads, make_pod_exchange
+    mesh = _mesh("multi")
+    grads = _exchange_grads()
+    _, in_sh, out_sh = make_pod_exchange(mesh, grads, method)
+    placed = shd.distribute(grads, in_sh)
+    local = tree_map(lambda x: x.to_local(), placed)
+    group = mesh.get_group("pod")
+    with CollectiveRecorder() as rec:
+        summed = compress_grads(local, group, method)
+
+    def wrap(name):
+        sh = out_sh[name]["w"]
+        shape = torch.Size((1,) + tuple(grads[name]["w"].shape)[1:])
+        return {"w": DTensor.from_local(
+            summed[name]["w"], mesh, sh.placements, run_check=False,
+            shape=shape, stride=torch.empty(shape, device="meta").stride())}
+
+    out = {name: wrap(name) for name in grads}
+    res = _exchange_result(rank, out, out_sh, dict(rec.stats.by_op),
+                           rec.stats.total_bytes)
+    try:
+        compress_grads(local, group, "f32")
+    except ValueError as e:
+        res["refuses"] = repr(e)
+    return res
+
+
 def _cases(tmp):
     for arch, mesh in LOWER:
         yield f"lower/{arch}/{mesh}", case_lower, (arch, mesh)
@@ -316,6 +399,13 @@ def _cases(tmp):
     for arch, policy, n in SERVE:
         yield f"serve/{arch}/{policy}", case_serve, (arch, policy, n)
     yield "cli", case_cli, (os.path.join(tmp, "cli"),)
+    from _jax_reference import exchange_spec
+    for method in EXCHANGE_METHODS:
+        yield f"exchange/{method}", case_exchange, (method, None)
+        yield f"exchange/fsdp/{method}", case_exchange, (method,
+                                                         exchange_spec)
+    for method in COMPRESS_METHODS:
+        yield f"compress/{method}", case_compress, (method,)
 
 
 def _worker(rank, world, tmp, out_path):

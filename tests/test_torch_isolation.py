@@ -7,9 +7,10 @@ fallback, and no compiler needed to import it.
   and reading ``sys.modules``. Importing it loads no kernel either.
   The plan, checkpoint, fabric and router modules, the sweep engine,
   studies, examples and tools, the planner's search, its command
-  line and ``plan_report``, and the training stack (optimizer, data
-  stream, losses, trainer, ``examples.train_lm``) are also imported
-  first, each in a fresh interpreter.
+  line and ``plan_report``, the training stack (optimizer, data
+  stream, losses, trainer, ``examples.train_lm``), and the block-FP
+  exchange, roofline, dry-run and their tools are also imported first,
+  each in a fresh interpreter.
 * Entry points default to CUDA: without a CUDA device and without an
   explicit ``device="cpu"`` they raise (the engine, ``init_params``,
   calibration, ``build_engine``, ``build_replicas`` and
@@ -430,6 +431,23 @@ def test_training_modules_stand_alone():
     """The optimizer, the data stream, the losses, the trainer and its
     example, each imported first in a fresh interpreter, as above."""
     _imports_alone(TRAINING_MODULES)
+
+
+EXCHANGE_AND_DRYRUN_MODULES = (
+    "repro_torch.parallel.blockfp", "repro_torch.launch.roofline",
+    "repro_torch.launch.cell_configs", "repro_torch.launch.dryrun",
+    "repro_torch.tools.exchange_bench", "repro_torch.tools.mem_probe",
+    "repro_torch.tools.roofline_table")
+
+
+def test_exchange_and_dryrun_modules_stand_alone():
+    """The block-FP exchange, the roofline, the cell configs, the
+    dry-run and its three tools, each imported first in a fresh
+    interpreter, as above; importing them starts no process group (the
+    dry-run's fake world starts only inside a cell)."""
+    _imports_alone(EXCHANGE_AND_DRYRUN_MODULES,
+                   "import torch.distributed as dist\n"
+                   "assert not dist.is_initialized()\n")
 
 
 SHARDING_MODULES = ("repro_torch.parallel", "repro_torch.parallel.sharding",

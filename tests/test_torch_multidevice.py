@@ -19,7 +19,20 @@ held to the port's own run on plain tensors on one device:
   local shards, K whole): greedy streams identical to one device, the
   logits too (the reading: max abs 0.0 for all four, so no near tie is
   left to name), and as many per-call weight quantizations;
-* *cli*: ``launch.train.run`` across the 8 ranks on its (1, 8) mesh.
+* *cli*: ``launch.train.run`` across the 8 ranks on its (1, 8) mesh;
+* *exchange*: ``parallel.blockfp.make_pod_exchange`` on (2, 2, 2) over
+  ``tests/test_blockfp.py``'s gradients, held to the JAX reference's
+  exchange on 8 host devices (one ``_jax_reference.py blockfp``
+  subprocess): each output's global shape, spec and placements; f32
+  and int8 bit-equal; blockfp8 bit-equal to ``np.ldexp`` of the
+  reference's own aligned mantissa sums and within ``EXCHANGE_RTOL``
+  of its outputs (its ``jnp.exp2`` scale is inexact, ``ROADMAP.md``
+  §3); the all-gather bytes per chip equal to its
+  ``parse_collectives`` (18,432 f32, 4,608 int8 and blockfp8), and f32
+  at least 3.5x either compressed exchange's total; the same with a
+  ``fsdp_spec_fn`` of its own (``_jax_reference.exchange_spec``), and
+  ``compress_grads`` (int8, blockfp8) on the local shards against the
+  reference's in a ``shard_map`` with the exchange's specs.
 
 Bounds are set from this file's readings (gloo, one intra-op thread per
 rank), about five times each and never above ten; each reading stands
@@ -34,6 +47,7 @@ import numpy as np
 import pytest
 
 import _torch_multidev as md
+from _torch_parity import run_references
 
 # lower: loss abs (reading 0 or one f32 ulp at 6.7, 4.8e-7), params
 # after one step (reading 0.0 in all 11)
@@ -48,6 +62,11 @@ RUN_BOUNDS = {
 }
 ELASTIC_LOSS, ELASTIC_PARAMS = 2.4e-6, 2.9e-5     # 4.8e-7 5.8e-6
 CLI_LOSS, CLI_PARAMS = 5.6e-3, 1.1e-4             # 1.1e-3 2.1e-5
+# blockfp8 against the reference's outputs, elementwise relative: its
+# scale is XLA's exp2 of an integer-valued f32, off by up to 4.05e-6
+# relative (the reading: 5.2e-7); where its scale is below 2^-125 the
+# reference underflows (tests/test_torch_blockfp.py covers that range)
+EXCHANGE_RTOL = 4.1e-6
 
 
 @pytest.fixture(scope="module")
@@ -113,3 +132,98 @@ def test_trainer_cli_runs_across_ranks(results):
     assert r["step"] == 4
     assert _loss_err(r) <= CLI_LOSS
     assert r["param_err"] <= CLI_PARAMS
+
+
+@pytest.fixture(scope="module")
+def exchange_reference():
+    return run_references("blockfp", [None], env_extra={
+        "XLA_FLAGS": "--xla_force_host_platform_device_count=8 "
+                     "--xla_allow_excess_precision=false"})[None]
+
+
+def _check_layout(r, ref):
+    from repro_torch.launch.mesh import abstract_mesh
+    from repro_torch.parallel import sharding as shd
+    mesh = abstract_mesh(*md.MESHES["multi"])
+    assert set(r["leaves"]) == set(ref)
+    for name, leaf in r["leaves"].items():
+        assert leaf["shape"] == ref[name]["shape"], name
+        assert leaf["spec"] == ref[name]["spec"], name
+        assert leaf["placements"] == leaf["want_placements"] == \
+            shd.placements(ref[name]["spec"], mesh), name
+        assert leaf["dtype"] == "torch.float32"
+
+
+def _check_values(r, ref_leaves, method):
+    for name, ref in ref_leaves.items():
+        got, want = r["leaves"][name]["values"], ref["values"]
+        assert got.shape == want.shape and got.dtype == np.float32
+        if method != "blockfp8":
+            np.testing.assert_array_equal(got.view(np.int32),
+                                          want.view(np.int32))
+            continue
+        np.testing.assert_array_equal(got.view(np.int32),
+                                      ref["ldexp"].view(np.int32))
+        # every block of these gradients (about 1e-3) has its scale
+        # near 2^-16, far above 2^-125
+        keep = want != 0
+        assert np.abs(want).max() < 1.0 and keep.mean() > 0.9
+        rel = np.abs(got - want)[keep] / np.abs(want)[keep]
+        assert rel.max() <= EXCHANGE_RTOL, (name, rel.max())
+
+
+@pytest.mark.parametrize("method", md.EXCHANGE_METHODS)
+def test_pod_exchange_layout_matches_reference(results, exchange_reference,
+                                               method):
+    _check_layout(_case(results, f"exchange/{method}"),
+                  exchange_reference[method]["leaves"])
+
+
+@pytest.mark.parametrize("method", md.EXCHANGE_METHODS)
+def test_pod_exchange_values_match_reference(results, exchange_reference,
+                                             method):
+    _check_values(_case(results, f"exchange/{method}"),
+                  exchange_reference[method]["leaves"], method)
+
+
+@pytest.mark.parametrize("method", md.EXCHANGE_METHODS)
+def test_pod_exchange_wire_bytes_match_reference(results, exchange_reference,
+                                                 method):
+    r = _case(results, f"exchange/{method}")
+    ref = exchange_reference[method]["by_op"]
+    assert r["by_op"]["all-gather"] == ref["all-gather"]
+    assert r["by_op"]["all-gather"] == {"f32": 18432.0}.get(method, 4608.0)
+    f32 = _case(results, "exchange/f32")["total_bytes"]
+    if method != "f32":
+        assert f32 / r["total_bytes"] >= 3.5
+
+
+@pytest.mark.parametrize("method", md.EXCHANGE_METHODS)
+def test_pod_exchange_with_a_spec_fn_matches_reference(
+        results, exchange_reference, method):
+    """``fsdp_spec_fn=exchange_spec`` (rows or columns over ('data',
+    'model'), so other local shards and block boundaries than the
+    default's): layout, values and all-gather bytes as the reference's
+    under the same function."""
+    key = f"fsdp/{method}"
+    r, ref = _case(results, f"exchange/{key}"), exchange_reference[key]
+    assert r["leaves"]["embed"]["spec"] == (None, None, ("data", "model"))
+    _check_layout(r, ref["leaves"])
+    _check_values(r, ref["leaves"], method)
+    assert r["by_op"]["all-gather"] == ref["by_op"]["all-gather"]
+
+
+@pytest.mark.parametrize("method", md.COMPRESS_METHODS)
+def test_compress_grads_match_reference(results, exchange_reference,
+                                        method):
+    """``compress_grads`` over the 'pod' group on local shards, against
+    the reference's in a ``shard_map`` with the same specs: the sums
+    (not averages) bit-equal (int8) or as the exchange's values
+    (blockfp8); all-gather bytes as the reference's; "f32" refused."""
+    key = f"compress/{method}"
+    r, ref = _case(results, key), exchange_reference[key]
+    _check_layout(r, ref["leaves"])
+    _check_values(r, ref["leaves"], method)
+    assert r["by_op"]["all-gather"] == ref["by_op"]["all-gather"] == 4608.0
+    assert "ValueError" in r["refuses"] and \
+        "ValueError" in exchange_reference["compress_refuses"]
